@@ -19,8 +19,18 @@ Phases, one output line (or a few) each:
   5. a 2^16-point square-chain proof on the card equals the CPU proof;
   6. the 2,097,151-step square-chain statement (2^24 evaluation points,
      21 FRI rounds) on the card: 22,496 proof bytes, both verifiers accept;
-     this is the main-path run whose kernel launches are counted;
-  7. the kernel JSON line, then the result line.
+  7. the 4,194,303-step statement (2^25 points, 22 FRI rounds) through the
+     operator entry points: ``python -m zkstark_tpu_torch prove`` in a
+     subprocess on the Pease route (ZKSTARK_PEASE=on), ``... verify`` and
+     the C++ verifier on its file, then ``tools.prove_big --trace-bits 22``
+     in this process on the default DIT route: 24,252 proof bytes, the same
+     bytes from both routes; this is the main-path run whose kernel
+     launches are counted (Pease from the CLI, the others from prove_big);
+  8. a 2^16 checkpoint written on the card at the post-device barrier (and
+     one at phase2) resumes on the CPU to phase 5's proof;
+  9. the kernel JSON line, then the result line.
+
+Every phase that proves checks the launch counters of its own route.
 
 Any failure is an uncaught exception and a nonzero exit; nothing is caught.
 """
@@ -29,6 +39,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -39,11 +50,15 @@ GOLDEN_LEN = 7836
 BIG_TRACE_BITS = 21  # 2^24 evaluation points at blowup 8
 BIG_SECRET = 271828
 BIG_PROOF_LEN = 22496
+HUGE_TRACE_BITS = 22  # 2^25 evaluation points
+HUGE_PROOF_LEN = 24252  # artifacts/PROVE_2e25_r04.jsonl
+DIT_KERNELS = ("sha256_leaf", "sha256_node", "ntt_rows")
 
 SRC = {
     "sha256_leaf": ("zkstark_tpu_torch/csrc/sha256.cu", "zkstark_tpu/ops/sha256_kernel.py:105"),
     "sha256_node": ("zkstark_tpu_torch/csrc/sha256.cu", "zkstark_tpu/ops/sha256_kernel.py:139"),
     "ntt_rows": ("zkstark_tpu_torch/csrc/ntt.cu", "zkstark_tpu/ops/ntt_kernel.py:78"),
+    "ntt_rows_pease": ("zkstark_tpu_torch/csrc/ntt_pease.cu", "zkstark_tpu/ops/ntt_kernel.py:125"),
 }
 
 
@@ -72,6 +87,14 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((fp.wide(a) - fp.wide(b)).abs().max().item())
 
 
+def require_launched(counts: dict, names, what: str) -> None:
+    """Each kernel in `names` launched at least once in the run `counts`
+    was read after."""
+    missing = [n for n in names if counts[n] <= 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels {missing} were not launched: {counts}")
+
+
 def phase0_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -90,18 +113,27 @@ def phase0_device() -> str:
 
 
 def phase1_build():
+    """nvcc (one process per source) and g++ (the C++ verifier) at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from zkstark_tpu_torch import native
     from zkstark_tpu_torch.ops import _build
 
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    _build.kernels()
-    t1 = time.perf_counter()
-    native.native()
-    t2 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        nvcc = pool.submit(timed, _build.kernels)
+        cxx = pool.submit(timed, native.native)
+        nvcc_s, cxx_s = nvcc.result(), cxx.result()
+    wall = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in _build.build_log.splitlines() if "Used" in ln or "spill" in ln]
     for ln in ptxas:
         say("phase1 ptxas", ln)
-    say(f"phase1 build nvcc_s={t1 - t0:.3f} cxx_verifier_s={t2 - t1:.3f}")
+    say(f"phase1 build nvcc_s={nvcc_s:.3f} cxx_verifier_s={cxx_s:.3f} wall_s={wall:.3f}")
 
 
 def phase2_fp():
@@ -176,21 +208,35 @@ def phase3_kernels() -> dict:
     rows["sha256_node"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
     say(f"phase3 sha256_node k=2^19 max_abs_err={err} tol=0 ms={ms:.4f} plain_ms={plain_ms:.4f}")
 
-    for batch, m in ((1, 1024), (1, 8192), (1024, 2048), (2048, 1024), (4096, 4096)):
-        fld = fp.FIELD101
-        x = fp.from_host(
-            fld.host_to_mont(rng.integers(0, fld.p, (batch, m), dtype=np.uint64)), "cuda"
-        )
-        w = ntt_core.forward_plan(m).root
-        tw = ntt_kernel.stage_twiddles(m, w, fld)
-        err = max_abs_err(ntt_kernel.ntt_rows(x, w), ntt_kernel.ntt_rows_plain(x, tw))
-        ms = cuda_ms(lambda: ntt_kernel.ntt_rows(x, w), 20)
-        plain_ms = cuda_ms(lambda: ntt_kernel.ntt_rows_plain(x, tw), 3)
-        say(f"phase3 ntt_rows batch={batch} m={m} max_abs_err={err} tol=0 ms={ms:.4f} plain_ms={plain_ms:.4f}")
-        if (batch, m) == (4096, 4096):
-            rows["ntt_rows"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-        if err:
-            raise AssertionError(f"ntt_rows ({batch}, {m}) differs from its plain twin")
+    # (batch, m): stark-101 INTT and LDE; 2^21 INTT passes; 2^22 INTT;
+    # 2^24 LDE; the 2^25 LDE's two passes (n1 = 8192, n2 = 4096)
+    fld = fp.FIELD101
+    dit_shapes = ((1, 1024), (1, 8192), (1024, 2048), (2048, 1024), (2048, 2048),
+                  (4096, 4096), (4096, 8192), (8192, 4096))
+    pease_shapes = ((2048, 2048), (4096, 4096), (4096, 8192), (8192, 4096))
+    kernels = (
+        ("ntt_rows", ntt_kernel.ntt_rows, ntt_kernel.ntt_rows_plain, ntt_kernel.stage_twiddles,
+         dit_shapes),
+        ("ntt_rows_pease", ntt_kernel.ntt_rows_pease, ntt_kernel.ntt_rows_pease_plain,
+         ntt_kernel.pease_twiddles, pease_shapes),
+    )
+    for name, kernel, plain, table, shapes in kernels:
+        for batch, m in shapes:
+            x = fp.from_host(
+                fld.host_to_mont(rng.integers(0, fld.p, (batch, m), dtype=np.uint64)), "cuda"
+            )
+            w = ntt_core.forward_plan(m).root
+            tw = table(m, w, fld)
+            err = max_abs_err(kernel(x, w), plain(x, tw))
+            ms = cuda_ms(lambda: kernel(x, w), 20)
+            plain_ms = cuda_ms(lambda: plain(x, tw), 3)
+            say(f"phase3 {name} batch={batch} m={m} max_abs_err={err} tol=0 ms={ms:.4f} "
+                f"plain_ms={plain_ms:.4f}")
+            if (batch, m) == (4096, 4096):
+                rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            if err:
+                raise AssertionError(f"{name} ({batch}, {m}) differs from its plain twin")
+            del x
     for name, r in rows.items():
         if r["max_abs_err"]:
             raise AssertionError(f"{name} differs from its plain twin")
@@ -211,8 +257,7 @@ def phase4_stark101():
         raise AssertionError(f"stark-101 not golden: {len(proof.data)} B, {proof.state.hex()}")
     verify(proof, STARK101)
     verify_native(proof, STARK101)
-    if min(counts.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched: {counts}")
+    require_launched(counts, DIT_KERNELS, "stark-101")
     warm = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -255,6 +300,7 @@ def phase5_cross_check():
         f"phase5 square-chain 2^16 points cuda==cpu bytes={len(on_card.data)} "
         f"cuda_s={t1 - t0:.3f} cpu_s={t2 - t1:.3f}"
     )
+    return cfg, on_card
 
 
 def phase6_big():
@@ -280,8 +326,7 @@ def phase6_big():
     verify(proof, cfg)
     verify_s = time.perf_counter() - t0
     verify_native(proof, cfg)
-    if min(counts.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched at 2^24: {counts}")
+    require_launched(counts, DIT_KERNELS, "2^24")
     warm_timings = {}
     t0 = time.perf_counter()
     again = prove(cfg, BIG_SECRET, device="cuda", timings=warm_timings)
@@ -298,18 +343,131 @@ def phase6_big():
     )
     say(f"phase6 cold_phases={json.dumps({k: round(v, 4) for k, v in timings.items()})}")
     say(f"phase6 warm_phases={json.dumps({k: round(v, 4) for k, v in warm_timings.items()})}")
-    return counts
+
+
+def _cli(args: list, env: dict) -> dict:
+    """Run ``python -m zkstark_tpu_torch --json ARGS`` from the repository
+    root; its last output line, parsed. Fails on a nonzero exit."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "zkstark_tpu_torch", "--json", *args]
+    res = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True, timeout=900)
+    if res.returncode != 0:
+        raise AssertionError(
+            f"{' '.join(cmd[2:])} exited {res.returncode}:\n{res.stdout[-2000:]}\n{res.stderr[-4000:]}"
+        )
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def phase7_entry_points(tmp_dir: str) -> dict:
+    """The 2^25 statement through the CLI (Pease route, subprocess) and
+    prove_big (DIT route, this process); returns the main-path counts."""
+    from zkstark_tpu_torch import ops
+    from zkstark_tpu_torch.native import verify_native
+    from zkstark_tpu_torch.protocol import Proof
+    from zkstark_tpu_torch.tools import prove_big
+
+    trace_len = (1 << HUGE_TRACE_BITS) - 1
+    out = os.path.join(tmp_dir, "proof_2e25.bin")
+    statement = ["--air", "square-chain", "--trace-len", str(trace_len)]
+    env = dict(os.environ, ZKSTARK_PEASE="on")
+    torch.cuda.empty_cache()  # leave the card's memory to the subprocess
+    t0 = time.perf_counter()
+    cli = _cli(statement + ["prove", "--secret", str(BIG_SECRET), "--out", out], env)
+    cli_s = time.perf_counter() - t0
+    pease_counts = cli["kernel_launches"]
+    require_launched(pease_counts, ("sha256_leaf", "sha256_node", "ntt_rows_pease"), "CLI 2^25")
+    boundary = str(cli["boundary_last"])
+    checked = _cli(statement + ["--boundary-last", boundary, "verify", out], env)
+    if not checked.get("verified"):
+        raise AssertionError(f"the port's verifier rejected the 2^25 CLI proof: {checked}")
+    with open(out, "rb") as f:
+        cli_bytes = f.read()
+    cli_proof = Proof.from_bytes(cli_bytes)
+    say(
+        f"phase7 cli prove (ZKSTARK_PEASE=on) bytes={len(cli_proof.data)} "
+        f"prover_runtime_s={cli['prover_runtime_seconds']} witness_s={cli['witness_seconds']} "
+        f"max_memory_allocated={cli['max_memory_allocated']} process_s={cli_s:.3f} "
+        f"launches={json.dumps(pease_counts)} verify=ok "
+        f"verify_s={checked['verifier_runtime_seconds']}"
+    )
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    proof, cfg, _ = prove_big.run(HUGE_TRACE_BITS, device="cuda",
+                                    emit=lambda r: say("phase7 prove_big", json.dumps(r)))
+    torch.cuda.synchronize()
+    dit_counts = ops.launch_counts()
+    if cfg.boundary_last != int(boundary):
+        raise AssertionError("prove_big and the CLI derived different public outputs")
+    verify_native(cli_proof, cfg)
+    if len(proof.data) != HUGE_PROOF_LEN:
+        raise AssertionError(f"2^25 proof has {len(proof.data)} bytes, want {HUGE_PROOF_LEN}")
+    if proof.to_bytes() != cli_bytes:
+        raise AssertionError("2^25: the DIT-route proof differs from the Pease-route CLI proof")
+    require_launched(dit_counts, DIT_KERNELS, "prove_big 2^25")
+    if dit_counts["ntt_rows_pease"]:
+        raise AssertionError(f"the DIT route launched the Pease kernel: {dit_counts}")
+    say(
+        f"phase7 2^25 bytes={len(proof.data)} state={proof.state.hex()} cli==prove_big native=ok "
+        f"launches={json.dumps(dit_counts)}"
+    )
+    # one warm prove with phase spans on each route, in turns, in this process
+    from zkstark_tpu_torch import prove
+
+    for route in ("off", "on"):
+        os.environ["ZKSTARK_PEASE"] = route
+        warm = {}
+        t0 = time.perf_counter()
+        again = prove(cfg, BIG_SECRET, device="cuda", timings=warm)
+        warm_s = time.perf_counter() - t0
+        if again != proof:
+            raise AssertionError(f"2^25 proof with ZKSTARK_PEASE={route} differs")
+        say(f"phase7 warm ZKSTARK_PEASE={route} warm_s={warm_s:.3f} "
+            f"phases={json.dumps({k: round(v, 4) for k, v in warm.items()})}")
+    os.environ.pop("ZKSTARK_PEASE")
+    return {**dit_counts, "ntt_rows_pease": pease_counts["ntt_rows_pease"]}
+
+
+def phase8_checkpoint(tmp_dir: str, cfg, want) -> None:
+    """A checkpoint written on the card resumes on the CPU to the bytes of
+    the uninterrupted proof (phase 5)."""
+    from zkstark_tpu_torch.protocol.checkpoint import ResumableProver
+
+    for fused, barrier in ((True, "fused"), (False, "phase2")):
+        path = os.path.join(tmp_dir, f"ckpt_{barrier}.npz")
+        t0 = time.perf_counter()
+        stopped = ResumableProver(cfg, BIG_SECRET, path, fused=fused, device="cuda").run(
+            stop_after=barrier
+        )
+        t1 = time.perf_counter()
+        if stopped is not None or not os.path.exists(path):
+            raise AssertionError(f"no {barrier} checkpoint was written")
+        size = os.path.getsize(path)
+        resumed = ResumableProver(cfg, BIG_SECRET, path, fused=fused, device="cpu").run()
+        t2 = time.perf_counter()
+        if resumed != want:
+            raise AssertionError(f"2^16 resumed from {barrier} on the cpu differs from phase 5")
+        say(
+            f"phase8 checkpoint {barrier} cuda->cpu resumed==phase5 file_bytes={size} "
+            f"cuda_s={t1 - t0:.3f} cpu_resume_s={t2 - t1:.3f}"
+        )
 
 
 def main():
     smi = phase0_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    # phases 4-6 and prove_big take the default DIT route; phase 7 turns the
+    # Pease route on for its CLI subprocess and for one timed prove
+    os.environ.pop("ZKSTARK_PEASE", None)
     phase1_build()
     phase2_fp()
     rows = phase3_kernels()
     phase4_stark101()
-    phase5_cross_check()
-    launches = phase6_big()
+    cfg16, proof16 = phase5_cross_check()
+    phase6_big()
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        launches = phase7_entry_points(tmp_dir)
+        phase8_checkpoint(tmp_dir, cfg16, proof16)
     kernels = [
         {
             "name": name,
@@ -321,7 +479,7 @@ def main():
             "ms": rows[name]["ms"],
             "plain_ms": rows[name]["plain_ms"],
         }
-        for name in ("sha256_leaf", "sha256_node", "ntt_rows")
+        for name in SRC
     ]
     say(json.dumps({"kernels": kernels}))
     say(smi)

@@ -6,7 +6,8 @@ no JAX, so it also runs on a machine with a card and no JAX:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Shapes the prove path does not reach are covered here: ragged hash counts,
-every row length 2..8192, the second prime, and the wrappers' input checks.
+every row length 2..8192 for both row kernels (DIT and Pease), the second
+prime, both four-step routes, and the wrappers' input checks.
 """
 
 import numpy as np
@@ -58,11 +59,27 @@ def test_ntt_rows_every_length(dev, field, log_m):
     _eq(ntt_kernel.ntt_rows(x, w, field), ntt_kernel.ntt_rows_plain(x, ntt_kernel.stage_twiddles(m, w, field), field))
 
 
-def test_fourstep_on_card_equals_cpu(dev):
+@pytest.mark.parametrize("field", [fp.FIELD101, fp.FIELD_ALT], ids=["p101", "alt"])
+@pytest.mark.parametrize("log_m", range(1, 14))
+def test_ntt_rows_pease_every_length(dev, field, log_m):
+    m = 1 << log_m
+    rng = np.random.default_rng(100 + log_m)
+    x = fp.from_host(field.host_to_mont(rng.integers(0, field.p, (3, m), dtype=np.uint64)), dev)
+    w = ntt_core.forward_plan(m, field).root
+    tw = ntt_kernel.pease_twiddles(m, w, field)
+    _eq(ntt_kernel.ntt_rows_pease(x, w, field), ntt_kernel.ntt_rows_pease_plain(x, tw, field))
+
+
+@pytest.mark.parametrize("pease", ["off", "on"])
+def test_fourstep_on_card_equals_cpu(dev, monkeypatch, pease):
+    monkeypatch.setenv("ZKSTARK_PEASE", pease)
     n = 1 << 16
     x = fp.FIELD101.host_to_mont(_u32(n, 7) % fp.P)
     plan = ntt_core.forward_plan(n)
+    counter = "pease_launches" if pease == "on" else "ntt_launches"
+    before = getattr(ntt_kernel, counter)
     _eq(ntt_core.ntt(fp.from_host(x, dev), plan), ntt_core.ntt(fp.from_host(x, "cpu"), plan))
+    assert getattr(ntt_kernel, counter) == before + 2
 
 
 def test_wrappers_reject_bad_input(dev):
@@ -74,3 +91,7 @@ def test_wrappers_reject_bad_input(dev):
         ntt_kernel.ntt_rows(fp.from_host(_u32((4, 8), 2), dev).t(), 1)
     with pytest.raises(ValueError):
         ntt_kernel.ntt_rows(fp.from_host(_u32((1, 16384), 3), dev), 1)
+    with pytest.raises(ValueError):
+        ntt_kernel.ntt_rows_pease(fp.from_host(_u32((4, 8), 2), dev).t(), 1)
+    with pytest.raises(ValueError):
+        ntt_kernel.ntt_rows_pease(fp.from_host(_u32((1, 16384), 3), dev), 1)

@@ -2,9 +2,9 @@
 
 For each of the three AIRs at trace_len = 63 (a 512-point evaluation
 domain), `zkstark_tpu_torch.prove(..., device="cpu")` must return the final
-state and transcript of `zkstark_tpu.protocol.prove(cfg, secret)`. A second
-square-chain proof lowers the port's MIN_FOURSTEP so that every NTT of the
-proof runs through the four-step glue.
+state and transcript of `zkstark_tpu.protocol.prove(cfg, secret)`. Two more
+square-chain proofs lower the port's MIN_FOURSTEP so that every NTT of the
+proof runs through the four-step glue, on the DIT and on the Pease route.
 """
 
 import pytest
@@ -45,6 +45,17 @@ def test_proof_equals_jax(jax_proofs, name):
 
 def test_fourstep_glue_in_a_whole_proof(jax_proofs, monkeypatch):
     monkeypatch.setattr(ntt_kernel, "MIN_FOURSTEP", 4)
+    _, cfg = _configs("square-chain")
+    got = prove(cfg, SECRET, device="cpu")
+    want = jax_proofs["square-chain"]
+    assert (got.state, got.data) == (want.state, want.data)
+
+
+def test_pease_route_in_a_whole_proof(jax_proofs, monkeypatch):
+    """Every NTT of the proof through the four-step glue on the Pease route
+    (ZKSTARK_PEASE=on): the same bytes as the JAX proof."""
+    monkeypatch.setattr(ntt_kernel, "MIN_FOURSTEP", 4)
+    monkeypatch.setenv("ZKSTARK_PEASE", "on")
     _, cfg = _configs("square-chain")
     got = prove(cfg, SECRET, device="cpu")
     want = jax_proofs["square-chain"]

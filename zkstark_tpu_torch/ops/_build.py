@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` for Hopper (sm_90a) into
-one shared library with a plain C interface, ``build/zkstark_tpu_torch/``
-under the repository root, named by a hash of the sources and flags. The
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` for Hopper (sm_90a), one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface, ``build/zkstark_tpu_torch/`` under
+the repository root, named by a hash of the sources and flags. The
 library is loaded with ctypes; every pointer and the stream pass as
 ``c_void_p``. Each C entry point returns ``cudaGetLastError()`` after its
 launch, and `check` raises on anything but 0. There is no fallback: a build
@@ -24,17 +25,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "zkstark_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode",
-    "arch=compute_90a,code=sm_90a",
-    "-std=c++17",
-    "-O3",
-    "-shared",
-    "-Xcompiler",
-    "-fPIC",
-    "-Xptxas",
-    "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -46,6 +38,8 @@ _SIGNATURES = {
     "zk_sha256_node": (_P, _P, _I64, _P),
     # (x, out, stage_tw, log_m, batch, p, p_inv_neg, stream)
     "zk_ntt_rows": (_P, _P, _P, ctypes.c_int, _I64, _U32, _U32, _P),
+    # (x, out, tw, log_m, batch, p, p_inv_neg, stream)
+    "zk_ntt_rows_pease": (_P, _P, _P, ctypes.c_int, _I64, _U32, _U32, _P),
     # (a, b, out, n, p, p_inv_neg, stream)
     "zk_fp_check": (_P, _P, _P, _I64, _U32, _U32, _P),
 }
@@ -74,6 +68,46 @@ def _sources() -> tuple[list[Path], str]:
     return cu, h.hexdigest()[:16]
 
 
+def _compile(cu: list, so: Path) -> str:
+    """nvcc -c for every source in parallel, then one link into `so`;
+    returns nvcc's output (ptxas: registers, spills) and raises on failure."""
+    nvcc = _nvcc()
+    obj_dir = so.with_name(f"{so.stem}.{os.getpid()}.obj")
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    try:
+        objs = [obj_dir / f"{src.stem}.o" for src in cu]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT,
+                text=True,
+            )
+            for src, obj in zip(cu, objs)
+        ]
+        log, failed = "", []
+        for src, proc in zip(cu, procs):
+            out, _ = proc.communicate()
+            log += out
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode})")
+        if failed:
+            raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{log}")
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        res = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True,
+            text=True,
+        )
+        log += res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{log}")
+        os.replace(tmp, so)
+        return log
+    finally:
+        shutil.rmtree(obj_dir, ignore_errors=True)
+
+
 @functools.lru_cache(maxsize=1)
 def kernels() -> ctypes.CDLL:
     """The loaded kernel library, compiled first if this source hash has no
@@ -83,15 +117,9 @@ def kernels() -> ctypes.CDLL:
     so = BUILD_DIR / f"libzkstark_kernels_{key}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        build_log = _compile(cu, so)
         build_seconds = time.perf_counter() - t0
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
-        os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, args in _SIGNATURES.items():
         fn = getattr(lib, name)

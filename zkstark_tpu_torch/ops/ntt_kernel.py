@@ -24,12 +24,21 @@ factorization
   3. transpose to (n1, n2) and row-transform with root ω^{n1}  [kernel]
   4. transpose back, so the flat result is in natural order      [torch]
 
+With ``ZKSTARK_PEASE=on`` (the JAX package's own switch, `pease_enabled`,
+read at every call) both passes run `ntt_rows_pease` instead (CUDA kernel D,
+``csrc/ntt_pease.cu``): the constant-geometry DIF transform of
+``_ntt_cols_pease_kernel``, natural rows in and bit-reversed rows out. The
+bit-reversals then fall along dim 1; they are undone without a strided
+pass: the columns of U.T and V.T are permuted by br1 (host constants), and
+the transposes of steps 3 and 4 become row gathers of the transposed views.
+
 Outputs equal the radix-2 transform exactly (pure field identities).
 """
 
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
@@ -44,6 +53,14 @@ MIN_FOURSTEP = 1 << 14  # flat transforms from this size take the four-step glue
 _VBLK = 128  # width of the V factor of the four-step twiddle (capped at n2)
 
 ntt_launches = 0  # launches of the CUDA kernel, counted by ntt_rows
+pease_launches = 0  # launches of the Pease kernel, counted by ntt_rows_pease
+
+
+def pease_enabled() -> bool:
+    """The four-step route, read at each call as the JAX package reads it
+    (``zkstark_tpu/ops/ntt_kernel.py`` ``pease_enabled``): ``ZKSTARK_PEASE=on``
+    takes `ntt_rows_pease`, anything else `ntt_rows`."""
+    return os.environ.get("ZKSTARK_PEASE", "off") == "on"
 
 
 @functools.lru_cache(maxsize=None)
@@ -59,8 +76,39 @@ def stage_twiddles(m: int, w: int, field: Field = FIELD101) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
-def _device_twiddles(m: int, w: int, field: Field, device: torch.device):
-    return fp.from_host(stage_twiddles(m, w, field), device)
+def _device_table(table, m: int, w: int, field: Field, device: torch.device):
+    """table(m, w, field) (a host numpy twiddle table) on `device`."""
+    return fp.from_host(table(m, w, field), device)
+
+
+def _row_transform(kernel: str, x: torch.Tensor, w: int, field: Field, table, plain):
+    """The two row kernels' shared wrapper: checks x, then launches
+    ``zk_<kernel>`` on a CUDA tensor (or raises) or runs `plain` on a CPU
+    tensor. Returns (out, whether the kernel was launched)."""
+    _build.require(x, kernel, 2)
+    batch, m = x.shape
+    if m < 2 or m > MAX_ROW or m & (m - 1):
+        raise ValueError(f"{kernel}: row length {m} is not a power of two in [2, {MAX_ROW}]")
+    if x.device.type == "cpu":
+        return plain(x, table(m, w, field), field), False
+    out = torch.empty_like(x)
+    if batch == 0:
+        return out, False
+    tw_d = _device_table(table, m, w, field, x.device)
+    launch = getattr(_build.kernels(), f"zk_{kernel}")
+    with torch.cuda.device(x.device):
+        rc = launch(
+            x.data_ptr(),
+            out.data_ptr(),
+            tw_d.data_ptr(),
+            m.bit_length() - 1,
+            batch,
+            field.p,
+            field.p_inv_neg,
+            _build.stream(x),
+        )
+    _build.check(rc, kernel)
+    return out, True
 
 
 def ntt_rows_plain(x: torch.Tensor, tw: np.ndarray, field: Field = FIELD101):
@@ -86,36 +134,60 @@ def ntt_rows(x: torch.Tensor, w: int, field: Field = FIELD101) -> torch.Tensor:
     row of x (batch, m) uint32; natural order in and out. A CUDA tensor runs
     the kernel; a CPU tensor runs `ntt_rows_plain`."""
     global ntt_launches
-    _build.require(x, "ntt_rows", 2)
-    batch, m = x.shape
-    if m < 2 or m > MAX_ROW or m & (m - 1):
-        raise ValueError(f"ntt_rows: row length {m} is not a power of two in [2, {MAX_ROW}]")
-    tw = stage_twiddles(m, w, field)
-    if x.device.type == "cpu":
-        return ntt_rows_plain(x, tw, field)
-    out = torch.empty_like(x)
-    if batch == 0:
-        return out
-    tw_d = _device_twiddles(m, w, field, x.device)
-    lib = _build.kernels()
-    with torch.cuda.device(x.device):
-        rc = lib.zk_ntt_rows(
-            x.data_ptr(),
-            out.data_ptr(),
-            tw_d.data_ptr(),
-            m.bit_length() - 1,
-            batch,
-            field.p,
-            field.p_inv_neg,
-            _build.stream(x),
-        )
-    _build.check(rc, "ntt_rows")
-    ntt_launches += 1
+    out, launched = _row_transform("ntt_rows", x, w, field, stage_twiddles, ntt_rows_plain)
+    ntt_launches += launched
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def pease_twiddles(m: int, w: int, field: Field = FIELD101) -> np.ndarray:
+    """(m/2,) uint32 Montgomery table tw[j] = w^j for a length-m Pease
+    transform with root w. Stage t reads W_t[i] = tw[(i >> t) << t]; the
+    TPU's lane-padded (m/2, 128) table of every stage is not carried over."""
+    return field.host_to_mont(field.host_powers_pow2(w, m // 2))
+
+
+def ntt_rows_pease_plain(x: torch.Tensor, tw: np.ndarray, field: Field = FIELD101):
+    """Plain-torch twin of the Pease kernel: log2(m) identical stages
+    a = T + B, b = W_t·(T − B), x' = interleave(a, b) over whole rows (no
+    multiply in the last stage, whose twiddles are all w^0). x (batch, m)
+    uint32; natural order in, bit-reversed order out."""
+    b, m = x.shape
+    h = m // 2
+    stages = m.bit_length() - 1
+    i = torch.arange(h, device=x.device)
+    tw_w = torch.from_numpy(tw.astype(np.int64)).to(x.device)
+    v = fp.wide(x)
+    for t in range(stages):
+        top, bot = v[:, :h], v[:, h:]
+        a = fp.add_w(field, top, bot)
+        d = fp.sub_w(field, top, bot)
+        if t < stages - 1:
+            d = fp.mont_mul_w(field, d, tw_w[(i >> t) << t])
+        v = torch.stack([a, d], dim=-1).reshape(b, m)
+    return fp.narrow(v)
+
+
+def ntt_rows_pease(x: torch.Tensor, w: int, field: Field = FIELD101) -> torch.Tensor:
+    """Length-m transform with root w of every row of x (batch, m) uint32:
+    natural order in, BIT-REVERSED order out. A CUDA tensor runs the Pease
+    kernel; a CPU tensor runs `ntt_rows_pease_plain`."""
+    global pease_launches
+    out, launched = _row_transform(
+        "ntt_rows_pease", x, w, field, pease_twiddles, ntt_rows_pease_plain
+    )
+    pease_launches += launched
     return out
 
 
 def _transpose(x: torch.Tensor) -> torch.Tensor:
     return fp.as_u32(fp.as_i32(x).t().contiguous())
+
+
+def _transpose_gather(x: torch.Tensor, br: np.ndarray) -> torch.Tensor:
+    """Rows br of x.T (x's columns in the order br), in one gather pass."""
+    idx = torch.from_numpy(br.astype(np.int64)).to(x.device)
+    return fp.as_u32(fp.as_i32(x).t().index_select(0, idx))
 
 
 @functools.lru_cache(maxsize=None)
@@ -134,6 +206,18 @@ def _fourstep_constants(
     n1, n2 = 1 << b1, 1 << (bits - b1)
     u, v = _twiddle_uv_host(n1, n2, w, inverse_scale, field)
     return n1, n2, np.ascontiguousarray(u.T), np.ascontiguousarray(v.T)
+
+
+@functools.lru_cache(maxsize=None)
+def _pease_fourstep_constants(
+    n: int, w: int, inverse_scale: int | None, field: Field = FIELD101
+):
+    """The Pease route's constants: `_fourstep_constants` with the columns
+    of U.T and V.T permuted by br1 (pass 1 leaves k1 bit-reversed along
+    dim 1), and the row orders br1, br2 that undo each pass."""
+    n1, n2, ut, vt = _fourstep_constants(n, w, inverse_scale, field)
+    br1, br2 = bit_reverse_indices(n1), bit_reverse_indices(n2)
+    return n1, n2, np.ascontiguousarray(ut[:, br1]), np.ascontiguousarray(vt[:, br1]), br1, br2
 
 
 def _twiddle_uv_host(
@@ -173,9 +257,17 @@ def ntt_fourstep(
 ) -> torch.Tensor:
     """Size-n transform of a flat Montgomery vector with root w (standard
     form), natural order in and out. With inverse_scale (Montgomery n^{-1})
-    it is a complete INTT."""
-    n1, n2, ut, vt = _fourstep_constants(n, w, inverse_scale, field)
+    it is a complete INTT. The route (`pease_enabled`) is read at each call."""
     p = field.p
+    if pease_enabled():
+        n1, n2, ut, vt, br1, br2 = _pease_fourstep_constants(n, w, inverse_scale, field)
+        at = _transpose(x.reshape(n1, n2))  # row j2: x[j1·n2 + j2] over j1
+        at = ntt_rows_pease(at, pow(w, n2, p), field)  # [j2, br1(k1)]
+        tw = _apply_twiddle_t(at, ut, vt, field)  # U.T, V.T columns in br1 order
+        b = _transpose_gather(tw, br1)  # (n1, n2): [k1, j2]
+        d = ntt_rows_pease(b, pow(w, n1, p), field)  # [k1, br2(k2)]
+        return _transpose_gather(d, br2).reshape(n)  # X[k1 + n1·k2]
+    n1, n2, ut, vt = _fourstep_constants(n, w, inverse_scale, field)
     at = _transpose(x.reshape(n1, n2))  # row j2: x[j1·n2 + j2] over j1
     at = ntt_rows(at, pow(w, n2, p), field)  # [j2, k1]
     b = _transpose(_apply_twiddle_t(at, ut, vt, field))  # (n1, n2): [k1, j2]

@@ -14,6 +14,11 @@ device (`openings.sparse_openings`). The bytes equal both JAX paths.
      vanishing denominators; f(g^k·x) is a roll by k·blowup);
   3. FRI: evaluation-form folds, each followed by a Merkle commit;
   4. decommit: per query, the trace openings and one pair per FRI layer.
+
+`device_phases` runs everything that touches the device (through the query
+draws and the fetch of the openings); `decommit` serializes the fetched
+openings on the host. `prove` is the one followed by the other; the
+checkpoint (protocol/checkpoint.py) saves at that seam and at each phase.
 """
 
 from __future__ import annotations
@@ -211,10 +216,12 @@ class _PhaseClock:
         self.t0 = now
 
 
-def _resolve_device(device) -> torch.device:
+def resolve_device(device) -> torch.device:
+    """torch.device(device), raising if it is a CUDA device and there is no
+    card, or neither CPU nor CUDA."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"prove(device={str(device)!r}): CUDA is not available")
+        raise RuntimeError(f"device {str(device)!r}: CUDA is not available")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return dev
@@ -228,9 +235,98 @@ def _path_bytes(path) -> list:
     return [digest_to_bytes(path[d]) for d in range(path.shape[0])]
 
 
-def _decommit(cfg: StarkConfig, channel: Channel, out: dict, queries: list) -> None:
-    """Phase 4 from the gathered openings; commit order is the reference's
-    (prover.rs:256-289), generalised to n_queries."""
+def trace_to_device(cfg: StarkConfig, secret: int, device) -> torch.Tensor:
+    """The witness (host) in Montgomery form on `device`; raises ValueError
+    if it does not meet the public boundary."""
+    fld = cfg.field
+    trace = cfg.air.trace(cfg.trace_len, secret, fld.p)
+    if int(trace[-1]) != cfg.boundary_last:
+        raise ValueError(
+            "witness does not satisfy the public boundary: trace endpoint "
+            f"{int(trace[-1])} != {cfg.boundary_last}"
+        )
+    return fp.from_host(fld.host_to_mont(trace), device)
+
+
+def phase1(cfg: StarkConfig, channel: Channel, trace_mont: torch.Tensor):
+    """Interpolate → LDE → commit (prover.rs:24-85): (f_eval, f_res, f_levels)."""
+    fld = cfg.field
+    coeffs = air.interpolate_trace(trace_mont, cfg.trace_domain, fld)
+    f_eval = ntt.coset_ntt(coeffs, cfg.eval_domain, cfg.coset_offset, fld)
+    f_res = fp.from_mont_f(fld, f_eval)
+    f_levels = merkle.build_levels(f_res)
+    channel.commit_hash(_root_bytes(f_levels))
+    return f_eval, f_res, f_levels
+
+
+def phase2(cfg: StarkConfig, channel: Channel, f_eval: torch.Tensor):
+    """Composition (prover.rs:87-180): (cp_eval, cp_res, cp_levels)."""
+    fld = cfg.field
+    alphas = [fld.mont_scalar(channel.get_u32()) for _ in range(cfg.n_constraints)]
+    cp_eval = composition_eval(cfg, f_eval, alphas)
+    cp_res = fp.from_mont_f(fld, cp_eval)
+    cp_levels = merkle.build_levels(cp_res)
+    channel.commit_hash(_root_bytes(cp_levels))
+    return cp_eval, cp_res, cp_levels
+
+
+def phase3_fri(cfg: StarkConfig, channel: Channel, cp_eval, cp_res, cp_levels):
+    """FRI (prover.rs:182-254): every fold and commit, then the free term.
+    Returns (layer_res, layer_levels); layer 0 is the composition."""
+    fld = cfg.field
+    layer_res, layer_levels = [cp_res], [cp_levels]
+    evals = cp_eval
+    for layer in range(cfg.fri_rounds):
+        beta = fld.mont_scalar(channel.get_u32())
+        evals, res, levels = fri_fold_eval(cfg, layer, evals, beta)
+        layer_res.append(res)
+        layer_levels.append(levels)
+        channel.commit_hash(_root_bytes(levels))
+    channel.commit_u32(int(fp.to_host(layer_res[-1][:1])[0]))
+    return layer_res, layer_levels
+
+
+def phase4_openings(cfg: StarkConfig, channel: Channel, f_res, f_levels, layer_res, layer_levels):
+    """The query draws and every opening they need, gathered on the device
+    and fetched in one transfer: (host openings dict, queries)."""
+    queries = [channel.get_u32() % cfg.query_range for _ in range(cfg.n_queries)]
+    return sparse_openings(cfg, f_res, f_levels, layer_res, layer_levels, queries), queries
+
+
+def device_phases(
+    cfg: StarkConfig,
+    secret: int,
+    device,
+    channel: Channel,
+    artifacts: ProverArtifacts | None = None,
+    clock: _PhaseClock | None = None,
+):
+    """Everything of a proof that touches the device: the witness upload,
+    phases 1–3, the query draws and the openings. Returns the host openings
+    and the queries; what is left is `decommit`, host only. This is the
+    checkpoint's last barrier (protocol/checkpoint.py, phase "fused")."""
+    dev = resolve_device(device)
+    clock = clock or _PhaseClock(None, dev)
+    trace_mont = trace_to_device(cfg, secret, dev)
+    clock.lap("trace")
+    f_eval, f_res, f_levels = phase1(cfg, channel, trace_mont)
+    clock.lap("phase1_lde_commit")
+    cp_eval, cp_res, cp_levels = phase2(cfg, channel, f_eval)
+    clock.lap("phase2_composition")
+    layer_res, layer_levels = phase3_fri(cfg, channel, cp_eval, cp_res, cp_levels)
+    clock.lap("phase3_fri")
+    out, queries = phase4_openings(cfg, channel, f_res, f_levels, layer_res, layer_levels)
+    if artifacts is not None:
+        artifacts.f_res, artifacts.f_tree = f_res, merkle.MerkleTree(levels=f_levels)
+        artifacts.layer_res = layer_res
+        artifacts.layer_trees = [merkle.MerkleTree(levels=lv) for lv in layer_levels]
+        artifacts.query_indices = list(queries)
+    return out, queries
+
+
+def decommit(cfg: StarkConfig, channel: Channel, out: dict, queries: list) -> Proof:
+    """Phase 4 from the fetched openings, then the final state; commit order
+    is the reference's (prover.rs:256-289), generalised to n_queries."""
     for qi in range(len(queries)):
         for si in range(len(cfg.air.shifts)):
             channel.commit_bytes(
@@ -252,6 +348,8 @@ def _decommit(cfg: StarkConfig, channel: Channel, out: dict, queries: list) -> N
                     int(v[0]), int(v[1]), _path_bytes(p[0]), _path_bytes(p[1])
                 )
             )
+    state, data = channel.finalize()
+    return Proof(state=state, data=data)
 
 
 def prove(
@@ -263,61 +361,14 @@ def prove(
 ) -> Proof:
     """A proof byte-identical to the reference's generate_proof
     (prover.rs:9-293) and to ``zkstark_tpu.protocol.prove`` for the same
-    config and witness. `device` is where every vector and Merkle level
-    lives ("cuda" runs the CUDA kernels and raises if there is no CUDA
-    device). `timings`, if given, is filled with named phase spans in
-    seconds; each span waits for the device."""
-    dev = _resolve_device(device)
+    config and witness: `device_phases`, then `decommit`. `device` is where
+    every vector and Merkle level lives ("cuda" runs the CUDA kernels and
+    raises if there is no CUDA device). `timings`, if given, is filled with
+    named phase spans in seconds; each span waits for the device."""
+    dev = resolve_device(device)
     channel = Channel()
-    art = artifacts if artifacts is not None else ProverArtifacts()
     clock = _PhaseClock(timings, dev)
-    fld = cfg.field
-
-    trace = cfg.air.trace(cfg.trace_len, secret, fld.p)
-    if int(trace[-1]) != cfg.boundary_last:
-        raise ValueError(
-            "witness does not satisfy the public boundary: trace endpoint "
-            f"{int(trace[-1])} != {cfg.boundary_last}"
-        )
-    trace_mont = fp.from_host(fld.host_to_mont(trace), dev)
-    clock.lap("trace")
-
-    # Phase 1: interpolate → LDE → commit (prover.rs:24-85)
-    coeffs = air.interpolate_trace(trace_mont, cfg.trace_domain, fld)
-    f_eval = ntt.coset_ntt(coeffs, cfg.eval_domain, cfg.coset_offset, fld)
-    f_res = fp.from_mont_f(fld, f_eval)
-    f_levels = merkle.build_levels(f_res)
-    channel.commit_hash(_root_bytes(f_levels))
-    clock.lap("phase1_lde_commit")
-
-    # Phase 2: composition (prover.rs:87-180)
-    alphas = [fld.mont_scalar(channel.get_u32()) for _ in range(cfg.n_constraints)]
-    cp_eval = composition_eval(cfg, f_eval, alphas)
-    cp_res = fp.from_mont_f(fld, cp_eval)
-    cp_levels = merkle.build_levels(cp_res)
-    channel.commit_hash(_root_bytes(cp_levels))
-    clock.lap("phase2_composition")
-
-    # Phase 3: FRI (prover.rs:182-254)
-    layer_res, layer_levels = [cp_res], [cp_levels]
-    evals = cp_eval
-    for layer in range(cfg.fri_rounds):
-        beta = fld.mont_scalar(channel.get_u32())
-        evals, res, levels = fri_fold_eval(cfg, layer, evals, beta)
-        layer_res.append(res)
-        layer_levels.append(levels)
-        channel.commit_hash(_root_bytes(levels))
-    channel.commit_u32(int(fp.to_host(layer_res[-1][:1])[0]))
-    clock.lap("phase3_fri")
-
-    # Phase 4: decommit from sparse device gathers (prover.rs:256-289)
-    queries = [channel.get_u32() % cfg.query_range for _ in range(cfg.n_queries)]
-    out = sparse_openings(cfg, f_res, f_levels, layer_res, layer_levels, queries)
-    _decommit(cfg, channel, out, queries)
-    art.f_res, art.f_tree = f_res, merkle.MerkleTree(levels=f_levels)
-    art.layer_res = layer_res
-    art.layer_trees = [merkle.MerkleTree(levels=lv) for lv in layer_levels]
-    art.query_indices = list(queries)
-    state, data = channel.finalize()
+    out, queries = device_phases(cfg, secret, dev, channel, artifacts, clock)
+    proof = decommit(cfg, channel, out, queries)
     clock.lap("phase4_decommit")
-    return Proof(state=state, data=data)
+    return proof
