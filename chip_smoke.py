@@ -11,8 +11,14 @@ Phases, one output line (or a few) each:
   2. the fp.cuh field functions against exact integers and the plain-torch
      ops, on edge values next to p and 2^16 random pairs, for both primes;
   3. each kernel against its plain-torch twin on the card at the prove
-     path's shapes, with both times; the tolerance is 0 (the field has no
-     rounding, so every output word must be equal);
+     path's shapes, with both times and the least time the card could take
+     (its bound); the tolerance is 0 (the field has no rounding, so every
+     output word must be equal). `ntt_rows` also at each fused option
+     (pre-scale on a short valid prefix, the U·V twiddle, 1/n, post-scale)
+     and `transpose` on a missing tail; then `coset_ntt` at 2^13, 2^24 and
+     2^25 and `intt` at 2^10 and 2^22 on the card, timed, the 2^25 call
+     under torch.profiler, where every device kernel in the window must be
+     one of the port's own (or a memset or memcpy);
   4. stark-101 proved on the card: the golden 7,836-byte transcript and
      final state, accepted by the port's verifier and the C++ verifier, every
      kernel launched;
@@ -52,12 +58,37 @@ BIG_SECRET = 271828
 BIG_PROOF_LEN = 22496
 HUGE_TRACE_BITS = 22  # 2^25 evaluation points
 HUGE_PROOF_LEN = 24252  # artifacts/PROVE_2e25_r04.jsonl
-DIT_KERNELS = ("sha256_leaf", "sha256_node", "ntt_rows")
+ROW_KERNELS = ("sha256_leaf", "sha256_node", "ntt_rows")  # below the four-step size
+DIT_KERNELS = (*ROW_KERNELS, "transpose")
+
+# The card's published peaks (NVIDIA H100 SXM data sheet) that the bounds are
+# taken against: device memory rate, and integer ops per second as
+# half the float32 lanes (67 TFLOP/s is 2 flops on 128 lanes per SM; an SM
+# has 64 INT32 lanes).
+HBM_BYTES_PER_S = 3.35e12
+INT32_INSTR_PER_S = 67e12 / 4
+# The fewest integer ops (machine ops, one issue slot each) the arithmetic needs (loads, stores and
+# addressing not counted), as the bounds take them:
+#  * a Montgomery product of reduced residues 6 (a wide multiply, a low
+#    multiply, a high multiply, a subtract, a compare, a conditional add), a
+#    modular add 4, a modular subtract 3 (csrc/fp.cuh): 13 a butterfly;
+#  * a SHA-256 round 14 (two Σ of 3 rotates and one 3-input xor, Ch, Maj,
+#    4 three-input adds), a schedule step 10 (two σ of 4, two three-input
+#    adds), 8 adds to feed forward. A parent hashes one full block and the
+#    constant padding block, whose schedule costs nothing. A leaf hashes one
+#    block whose words 1..15 are constants: round 0 runs on constant state
+#    (3 instead of 14), and its 48 schedule steps fold to 370 ops
+#    (steps 16..30 to 52, every other step from 32 to 36 to 6, the rest 10).
+FP_MUL, FP_ADD, FP_SUB = 6, 4, 3
+SHA_ROUNDS = 64 * 14 + 8
+SHA_NODE = (SHA_ROUNDS + 48 * 10) + SHA_ROUNDS
+SHA_LEAF = SHA_ROUNDS - 11 + 370
 
 SRC = {
     "sha256_leaf": ("zkstark_tpu_torch/csrc/sha256.cu", "zkstark_tpu/ops/sha256_kernel.py:105"),
     "sha256_node": ("zkstark_tpu_torch/csrc/sha256.cu", "zkstark_tpu/ops/sha256_kernel.py:139"),
     "ntt_rows": ("zkstark_tpu_torch/csrc/ntt.cu", "zkstark_tpu/ops/ntt_kernel.py:78"),
+    "transpose": ("zkstark_tpu_torch/csrc/transpose.cu", "zkstark_tpu/ops/ntt_kernel.py:357"),
     "ntt_rows_pease": ("zkstark_tpu_torch/csrc/ntt_pease.cu", "zkstark_tpu/ops/ntt_kernel.py:125"),
 }
 
@@ -87,12 +118,42 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((fp.wide(a) - fp.wide(b)).abs().max().item())
 
 
+def bound(nbytes: float, instr: float) -> dict:
+    """The least milliseconds the card could take to move `nbytes` (each
+    input read once, each output written once) and to issue `instr` integer
+    ops, and which of the two sets it."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = instr / INT32_INSTR_PER_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def ntt_rows_bound(batch, valid, m, pre=False, uv=False, post=False, scale=False) -> dict:
+    """Bound of one `ntt_rows` call: rows and tables read once, the result
+    written once; (m/2)·log2(m) butterflies a row and the fused products."""
+    log_m = m.bit_length() - 1
+    words = batch * (valid + m) + (m - 1) + (batch // min(128, batch) + min(128, batch)) * m * uv
+    muls = batch * (m // 2 * log_m + 2 * valid * pre + 2 * m * uv + 2 * m * post + m * scale)
+    adds = batch * (m // 2 * log_m)
+    return bound(4 * words, muls * FP_MUL + adds * (FP_ADD + FP_SUB))
+
+
 def require_launched(counts: dict, names, what: str) -> None:
     """Each kernel in `names` launched at least once in the run `counts`
     was read after."""
     missing = [n for n in names if counts[n] <= 0]
     if missing:
         raise AssertionError(f"{what}: kernels {missing} were not launched: {counts}")
+
+
+def sm_clocks() -> str:
+    """The SM clock now and its maximum, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+        check=True,
+        capture_output=True,
+        text=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def phase0_device() -> str:
@@ -105,6 +166,7 @@ def phase0_device() -> str:
         text=True,
     ).stdout.strip().splitlines()[0]
     say(line)
+    say("phase0 clocks", sm_clocks())
     say(
         f"phase0 torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}"
@@ -151,7 +213,7 @@ def phase2_fp():
         a, b = a.astype(np.uint32), b.astype(np.uint32)
         n = a.shape[0]
         da, db = fp.from_host(a, "cuda"), fp.from_host(b, "cuda")
-        out = torch.empty((4, n), dtype=torch.uint32, device="cuda")
+        out = torch.empty((6, n), dtype=torch.uint32, device="cuda")
         _build.check(
             lib.zk_fp_check(
                 da.data_ptr(), db.data_ptr(), out.data_ptr(), n, p, fld.p_inv_neg,
@@ -175,11 +237,27 @@ def phase2_fp():
             x, y = int(a[i]), int(b[i])
             if x >= p or y >= p:
                 continue
-            exact = (x * y * r_inv % p, (x + y) % p, (x - y) % p, x * r_inv % p)
-            if tuple(int(got[r][i]) for r in range(4)) != exact:
+            exact = (x * y * r_inv % p, (x + y) % p, (x - y) % p, x * r_inv % p,
+                     x * y * r_inv % p, (x + y) % p)  # the last two: fp_mul_r, fp_add_r
+            if tuple(int(got[r][i]) for r in range(6)) != exact:
                 raise AssertionError(f"fp.cuh wrong at a={x} b={y} p={p}")
             checked += 1
         say(f"phase2 fp.cuh p={p} pairs={n} exact_checked={checked} ok")
+
+
+def _compare(name: str, label: str, kernel, plain, limit: dict, iters=20, library=None) -> dict:
+    """One kernel call against its plain twin (tolerance 0), both timed."""
+    err = max_abs_err(kernel(), plain())
+    ms = cuda_ms(kernel, iters)
+    plain_ms = cuda_ms(plain, 3)
+    library_ms = cuda_ms(library, iters) if library else None
+    say(f"phase3 {name} {label} max_abs_err={err} tol=0 ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={limit['bound_ms']:.4f} bound_by={limit['bound_by']} "
+        f"share={limit['bound_ms'] / ms:.3f}"
+        + (f" library_ms={library_ms:.4f}" if library else ""))
+    if err:
+        raise AssertionError(f"{name} {label} differs from its plain twin")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **limit)
 
 
 def phase3_kernels() -> dict:
@@ -191,56 +269,172 @@ def phase3_kernels() -> dict:
     rows = {}
 
     vals = fp.from_host(rng.integers(0, 1 << 32, 1 << 20, dtype=np.uint64).astype(np.uint32), "cuda")
-    err = max_abs_err(sha256_kernel.leaf_hash(vals), sha256_kernel.leaf_hash_plain(vals))
-    ms = cuda_ms(lambda: sha256_kernel.leaf_hash(vals), 20)
-    plain_ms = cuda_ms(lambda: sha256_kernel.leaf_hash_plain(vals), 3)
-    rows["sha256_leaf"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    say(f"phase3 sha256_leaf n=2^20 max_abs_err={err} tol=0 ms={ms:.4f} plain_ms={plain_ms:.4f}")
-
+    n = vals.shape[0]
+    rows["sha256_leaf"] = _compare(
+        "sha256_leaf", "n=2^20",
+        lambda: sha256_kernel.leaf_hash(vals), lambda: sha256_kernel.leaf_hash_plain(vals),
+        bound(4 * n + 32 * n, n * SHA_LEAF),
+    )
     children = fp.from_host(
         rng.integers(0, 1 << 32, (1 << 20, 8), dtype=np.uint64).astype(np.uint32), "cuda"
     )
-    err = max_abs_err(
-        sha256_kernel.node_hash_pairs(children), sha256_kernel.node_hash_pairs_plain(children)
+    k = children.shape[0] // 2
+    rows["sha256_node"] = _compare(
+        "sha256_node", "k=2^19",
+        lambda: sha256_kernel.node_hash_pairs(children),
+        lambda: sha256_kernel.node_hash_pairs_plain(children),
+        bound(64 * k + 32 * k, k * SHA_NODE),
     )
-    ms = cuda_ms(lambda: sha256_kernel.node_hash_pairs(children), 20)
-    plain_ms = cuda_ms(lambda: sha256_kernel.node_hash_pairs_plain(children), 3)
-    rows["sha256_node"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    say(f"phase3 sha256_node k=2^19 max_abs_err={err} tol=0 ms={ms:.4f} plain_ms={plain_ms:.4f}")
+
+    fld = fp.FIELD101
+
+    def rand_mont(shape):
+        return fp.from_host(fld.host_to_mont(rng.integers(0, fld.p, shape, dtype=np.uint64)), "cuda")
 
     # (batch, m): stark-101 INTT and LDE; 2^21 INTT passes; 2^22 INTT;
     # 2^24 LDE; the 2^25 LDE's two passes (n1 = 8192, n2 = 4096)
-    fld = fp.FIELD101
     dit_shapes = ((1, 1024), (1, 8192), (1024, 2048), (2048, 1024), (2048, 2048),
                   (4096, 4096), (4096, 8192), (8192, 4096))
     pease_shapes = ((2048, 2048), (4096, 4096), (4096, 8192), (8192, 4096))
-    kernels = (
-        ("ntt_rows", ntt_kernel.ntt_rows, ntt_kernel.ntt_rows_plain, ntt_kernel.stage_twiddles,
-         dit_shapes),
-        ("ntt_rows_pease", ntt_kernel.ntt_rows_pease, ntt_kernel.ntt_rows_pease_plain,
-         ntt_kernel.pease_twiddles, pease_shapes),
-    )
-    for name, kernel, plain, table, shapes in kernels:
-        for batch, m in shapes:
-            x = fp.from_host(
-                fld.host_to_mont(rng.integers(0, fld.p, (batch, m), dtype=np.uint64)), "cuda"
-            )
-            w = ntt_core.forward_plan(m).root
-            tw = table(m, w, fld)
-            err = max_abs_err(kernel(x, w), plain(x, tw))
-            ms = cuda_ms(lambda: kernel(x, w), 20)
-            plain_ms = cuda_ms(lambda: plain(x, tw), 3)
-            say(f"phase3 {name} batch={batch} m={m} max_abs_err={err} tol=0 ms={ms:.4f} "
-                f"plain_ms={plain_ms:.4f}")
-            if (batch, m) == (4096, 4096):
-                rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-            if err:
-                raise AssertionError(f"{name} ({batch}, {m}) differs from its plain twin")
-            del x
-    for name, r in rows.items():
-        if r["max_abs_err"]:
-            raise AssertionError(f"{name} differs from its plain twin")
+    for batch, m in dit_shapes:
+        x = rand_mont((batch, m))
+        w = ntt_core.forward_plan(m).root
+        r = _compare("ntt_rows", f"batch={batch} m={m}",
+                     lambda: ntt_kernel.ntt_rows(x, w), lambda: ntt_kernel.ntt_rows_plain(x, w),
+                     ntt_rows_bound(batch, m, m))
+        if (batch, m) == (4096, 4096):
+            rows["ntt_rows"] = r
+        del x
+    for batch, m in pease_shapes:
+        x = rand_mont((batch, m))
+        w = ntt_core.forward_plan(m).root
+        tw = ntt_kernel.pease_twiddles(m, w, fld)
+        limit = ntt_rows_bound(batch, m, m)
+        r = _compare("ntt_rows_pease", f"batch={batch} m={m}",
+                     lambda: ntt_kernel.ntt_rows_pease(x, w),
+                     lambda: ntt_kernel.ntt_rows_pease_plain(x, tw), limit)
+        if (batch, m) == (4096, 4096):
+            rows["ntt_rows_pease"] = r
+        del x
+
+    # ntt_rows at each fused option, at the calls the prove path makes: pass 1
+    # of the 2^25 and 2^24 LDEs (a short valid prefix, the coset pre-scale on
+    # load, the U·V twiddle on store), pass 1 of the 2^22 INTT (1/n folded
+    # into U), the stark-101 LDE and INTT (pre-scale; the scalar 1/n), and
+    # the post-scale of a coset INTT's pass 2
+    geo = ntt_kernel.GeoScale
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for log_n, blowup in ((25, 8), (24, 8)):
+        n = 1 << log_n
+        w = ntt_core.forward_plan(n).root
+        n1, n2, ut, vt = ntt_kernel._device_uv(n, w, None, fld, dev)
+        x = rand_mont((n2, n1 // blowup))
+        kw = dict(m=n1, pre=geo(5, n, col_stride=n2, row_stride=1), uv=(ut, vt))
+        w1 = pow(w, n2, fld.p)
+        _compare("ntt_rows", f"fused pre+uv batch={n2} valid={n1 // blowup} m={n1}",
+                 lambda: ntt_kernel.ntt_rows(x, w1, fld, **kw),
+                 lambda: ntt_kernel.ntt_rows_plain(x, w1, fld, **kw),
+                 ntt_rows_bound(n2, n1 // blowup, n1, pre=True, uv=True))
+        del x
+    n = 1 << 22
+    plan = ntt_core.inverse_plan(n)
+    w = ntt_core._effective_root(plan)
+    n1, n2, ut, vt = ntt_kernel._device_uv(n, w, plan.scale_mont, fld, dev)
+    x = rand_mont((n2, n1))
+    w1, w2 = pow(w, n2, fld.p), pow(w, n1, fld.p)
+    _compare("ntt_rows", f"fused uv(1/n) batch={n2} m={n1}",
+             lambda: ntt_kernel.ntt_rows(x, w1, fld, uv=(ut, vt)),
+             lambda: ntt_kernel.ntt_rows_plain(x, w1, fld, uv=(ut, vt)),
+             ntt_rows_bound(n2, n1, n1, uv=True))
+    post = geo(pow(5, fld.p - 2, fld.p), n, col_stride=n1, row_stride=1)
+    _compare("ntt_rows", f"fused post batch={n1} m={n2}",
+             lambda: ntt_kernel.ntt_rows(x, w2, fld, post=post),
+             lambda: ntt_kernel.ntt_rows_plain(x, w2, fld, post=post),
+             ntt_rows_bound(n1, n2, n2, post=True))
+    del x
+    x = rand_mont((1, 1024))
+    kw = dict(m=8192, pre=geo(5, 8192))
+    w = ntt_core.forward_plan(8192).root
+    _compare("ntt_rows", "fused pre batch=1 valid=1024 m=8192",
+             lambda: ntt_kernel.ntt_rows(x, w, fld, **kw),
+             lambda: ntt_kernel.ntt_rows_plain(x, w, fld, **kw),
+             ntt_rows_bound(1, 1024, 8192, pre=True))
+    plan = ntt_core.inverse_plan(1024)
+    w = ntt_core._effective_root(plan)
+    _compare("ntt_rows", "fused 1/n batch=1 m=1024",
+             lambda: ntt_kernel.ntt_rows(x, w, fld, scale=plan.scale_mont),
+             lambda: ntt_kernel.ntt_rows_plain(x, w, fld, scale=plan.scale_mont),
+             ntt_rows_bound(1, 1024, 1024, scale=True))
+    del x
+
+    # transpose: the four-step's passes at 2^24 and 2^25 (the first on the
+    # short coefficient vector) and the 2^22 INTT's
+    for r_, c_, words in ((4096, 4096, 1 << 24), (512, 4096, 1 << 21), (1024, 4096, 1 << 22),
+                          (4096, 8192, 1 << 25), (8192, 4096, 1 << 25), (2048, 2048, 1 << 22),
+                          (2048, 2048, (1 << 22) - 1)):
+        x = rand_mont(words)
+        whole = words == r_ * c_
+        r = _compare(
+            "transpose", f"rows={r_} cols={c_} words={words}",
+            lambda: ntt_kernel.transpose(x, r_, c_), lambda: ntt_kernel.transpose_plain(x, r_, c_),
+            bound(4 * (words + r_ * c_), 0),
+            library=(lambda: fp.as_i32(x).reshape(r_, c_).t().contiguous()) if whole else None,
+        )
+        if (r_, c_) == (4096, 4096):
+            rows["transpose"] = r
+        del x
+    say("phase3 clocks", sm_clocks())
+    phase3_lde()
     return rows
+
+
+OWN_KERNELS = ("ntt_rows_kernel", "transpose_kernel", "ntt_rows_pease_kernel", "sha256_leaf",
+               "sha256_node")
+
+
+def phase3_lde() -> None:
+    """The LDE entry points on the card, timed; the 2^25 `coset_ntt` under
+    torch.profiler launches none but the port's own kernels."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from zkstark_tpu_torch.field import fp
+    from zkstark_tpu_torch.ntt import core as ntt_core
+
+    fld = fp.FIELD101
+    rng = np.random.default_rng(33)
+
+    def rand_mont(n):
+        return fp.from_host(fld.host_to_mont(rng.integers(0, fld.p, n, dtype=np.uint64)), "cuda")
+
+    for log_n in (13, 24, 25):
+        n = 1 << log_n
+        coeffs = rand_mont(n // 8)
+        ms = cuda_ms(lambda: ntt_core.coset_ntt(coeffs, n, 5), 5 if log_n == 25 else 20)
+        say(f"phase3 coset_ntt n=2^{log_n} coeffs=2^{log_n - 3} ms={ms:.4f}")
+        if log_n == 25:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                ntt_core.coset_ntt(coeffs, n, 5)
+                torch.cuda.synchronize()
+            names = Counter(e.name for e in prof.events() if e.device_type == DeviceType.CUDA)
+            if not names:
+                raise AssertionError("torch.profiler recorded no device activity")
+            foreign = [k for k in names
+                       if not any(own in k for own in OWN_KERNELS)
+                       and not k.lower().startswith(("memset", "memcpy"))]
+            say(f"phase3 coset_ntt n=2^25 device kernels={json.dumps(dict(names))}")
+            if foreign:
+                raise AssertionError(f"coset_ntt at 2^25 launched foreign kernels: {foreign}")
+        del coeffs
+    for log_n in (10, 22):
+        n = 1 << log_n
+        evals = rand_mont(n)
+        plan = ntt_core.inverse_plan(n)
+        ms = cuda_ms(lambda: ntt_core.intt(evals, plan), 20)
+        say(f"phase3 intt n=2^{log_n} ms={ms:.4f}")
+        del evals
 
 
 def phase4_stark101():
@@ -257,7 +451,7 @@ def phase4_stark101():
         raise AssertionError(f"stark-101 not golden: {len(proof.data)} B, {proof.state.hex()}")
     verify(proof, STARK101)
     verify_native(proof, STARK101)
-    require_launched(counts, DIT_KERNELS, "stark-101")
+    require_launched(counts, ROW_KERNELS, "stark-101")
     warm = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -478,6 +672,9 @@ def main():
             "max_abs_err": rows[name]["max_abs_err"],
             "ms": rows[name]["ms"],
             "plain_ms": rows[name]["plain_ms"],
+            "bound_ms": rows[name]["bound_ms"],
+            "bound_by": rows[name]["bound_by"],
+            "library_ms": rows[name]["library_ms"],
         }
         for name in SRC
     ]

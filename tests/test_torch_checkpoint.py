@@ -47,36 +47,36 @@ def _ckpt(tmp_path):
 @pytest.mark.parametrize("stop_after", ["phase1", "phase2", "fri"])
 def test_resume_matches_uninterrupted(tmp_path, small_cfg, golden_proof, stop_after):
     path = _ckpt(tmp_path)
-    rp = checkpoint.ResumableProver(small_cfg, SECRET, path)
+    rp = checkpoint.ResumableProver(small_cfg, SECRET, path, device="cpu")
     assert rp.run(stop_after=stop_after) is None  # "crash"
-    resumed = checkpoint.ResumableProver(small_cfg, SECRET, path).run()
+    resumed = checkpoint.ResumableProver(small_cfg, SECRET, path, device="cpu").run()
     assert resumed.data == golden_proof.data
     assert resumed.state == golden_proof.state
 
 
 def test_uninterrupted_resumable_matches(tmp_path, small_cfg, golden_proof):
-    proof = checkpoint.ResumableProver(small_cfg, SECRET, _ckpt(tmp_path)).run()
+    proof = checkpoint.ResumableProver(small_cfg, SECRET, _ckpt(tmp_path), device="cpu").run()
     assert proof == golden_proof
 
 
 def test_checkpoint_removed_after_success(tmp_path, small_cfg):
     path = _ckpt(tmp_path)
-    checkpoint.ResumableProver(small_cfg, SECRET, path).run(stop_after="phase2")
+    checkpoint.ResumableProver(small_cfg, SECRET, path, device="cpu").run(stop_after="phase2")
     assert os.path.exists(path)
-    assert checkpoint.ResumableProver(small_cfg, SECRET, path).run() is not None
+    assert checkpoint.ResumableProver(small_cfg, SECRET, path, device="cpu").run() is not None
     assert not os.path.exists(path)
 
 
 def test_checkpoint_bound_to_statement(tmp_path, small_cfg):
     path = _ckpt(tmp_path)
-    checkpoint.ResumableProver(small_cfg, SECRET, path).run(stop_after="phase1")
+    checkpoint.ResumableProver(small_cfg, SECRET, path, device="cpu").run(stop_after="phase1")
     with pytest.raises(checkpoint.CheckpointError, match="DIFFERENT statement"):
-        checkpoint.ResumableProver(small_cfg, 2718281, path).run()
+        checkpoint.ResumableProver(small_cfg, 2718281, path, device="cpu").run()
     trace = fibonacci_sq_trace(127, SECRET)
     other = StarkConfig(trace_len=127, blowup=8, boundary_last=int(trace[-1]))
     with pytest.raises(checkpoint.CheckpointError, match="DIFFERENT statement"):
-        checkpoint.ResumableProver(other, SECRET, path).run()
-    assert checkpoint.ResumableProver(small_cfg, SECRET, path).run() is not None
+        checkpoint.ResumableProver(other, SECRET, path, device="cpu").run()
+    assert checkpoint.ResumableProver(small_cfg, SECRET, path, device="cpu").run() is not None
 
 
 def _rewrite(path, edit):
@@ -91,7 +91,7 @@ def test_corrupt_checkpoint_rejected(tmp_path, small_cfg, key):
     """One flipped byte in the transcript or in a bulk array fails the
     integrity digest."""
     path = _ckpt(tmp_path)
-    checkpoint.ResumableProver(small_cfg, SECRET, path).run(stop_after="phase1")
+    checkpoint.ResumableProver(small_cfg, SECRET, path, device="cpu").run(stop_after="phase1")
 
     def flip(flat):
         arr = flat[key].copy()
@@ -105,7 +105,7 @@ def test_corrupt_checkpoint_rejected(tmp_path, small_cfg, key):
 
 def test_truncated_checkpoint_rejected(tmp_path, small_cfg):
     path = _ckpt(tmp_path)
-    checkpoint.ResumableProver(small_cfg, SECRET, path).run(stop_after="phase1")
+    checkpoint.ResumableProver(small_cfg, SECRET, path, device="cpu").run(stop_after="phase1")
     blob = open(path, "rb").read()
     with open(path, "wb") as f:
         f.write(blob[: len(blob) // 2])
@@ -116,7 +116,7 @@ def test_truncated_checkpoint_rejected(tmp_path, small_cfg):
 @pytest.mark.parametrize("version", [None, checkpoint.FORMAT_VERSION + 1])
 def test_version_mismatch_has_its_own_error(tmp_path, small_cfg, version):
     path = _ckpt(tmp_path)
-    checkpoint.ResumableProver(small_cfg, SECRET, path).run(stop_after="phase1")
+    checkpoint.ResumableProver(small_cfg, SECRET, path, device="cpu").run(stop_after="phase1")
 
     def set_version(flat):
         if version is None:
@@ -132,7 +132,7 @@ def test_version_mismatch_has_its_own_error(tmp_path, small_cfg, version):
 @pytest.mark.parametrize("key", ["__fp__", "f_eval", "__len__f_levels"])
 def test_missing_key_has_its_own_error(tmp_path, small_cfg, key):
     path = _ckpt(tmp_path)
-    checkpoint.ResumableProver(small_cfg, SECRET, path).run(stop_after="phase1")
+    checkpoint.ResumableProver(small_cfg, SECRET, path, device="cpu").run(stop_after="phase1")
     _rewrite(path, lambda flat: flat.pop(key))
     with pytest.raises(checkpoint.CheckpointKeyError, match="no entry"):
         checkpoint.load(path)
@@ -143,17 +143,17 @@ def test_missing_key_has_its_own_error(tmp_path, small_cfg, key):
 
 def test_fused_resume_small(tmp_path, small_cfg, golden_proof):
     path = _ckpt(tmp_path)
-    rp = checkpoint.ResumableProver(small_cfg, SECRET, path, fused=True)
+    rp = checkpoint.ResumableProver(small_cfg, SECRET, path, fused=True, device="cpu")
     assert rp.run(stop_after="fused") is None
-    resumed = checkpoint.ResumableProver(small_cfg, SECRET, path, fused=True).run()
+    resumed = checkpoint.ResumableProver(small_cfg, SECRET, path, fused=True, device="cpu").run()
     assert resumed == golden_proof
 
 
 def test_fused_resume_stark101_golden(tmp_path):
     path = _ckpt(tmp_path)
-    rp = checkpoint.ResumableProver(STARK101, STARK101_SECRET, path, fused=True)
+    rp = checkpoint.ResumableProver(STARK101, STARK101_SECRET, path, fused=True, device="cpu")
     assert rp.run(stop_after="fused") is None
-    resumed = checkpoint.ResumableProver(STARK101, STARK101_SECRET, path, fused=True).run()
+    resumed = checkpoint.ResumableProver(STARK101, STARK101_SECRET, path, fused=True, device="cpu").run()
     assert len(resumed.data) == 7836
     assert resumed.state.hex() == GOLDEN_STATE
 
@@ -162,7 +162,7 @@ def test_any_barrier_resumes_whatever_fused_says(tmp_path, small_cfg, golden_pro
     """A legacy checkpoint resumes under fused=True and a fused one under
     fused=False: the checkpoint's phase decides."""
     path = _ckpt(tmp_path)
-    checkpoint.ResumableProver(small_cfg, SECRET, path).run(stop_after="phase2")
-    assert checkpoint.ResumableProver(small_cfg, SECRET, path, fused=True).run() == golden_proof
-    checkpoint.ResumableProver(small_cfg, SECRET, path, fused=True).run(stop_after="fused")
-    assert checkpoint.ResumableProver(small_cfg, SECRET, path).run() == golden_proof
+    checkpoint.ResumableProver(small_cfg, SECRET, path, device="cpu").run(stop_after="phase2")
+    assert checkpoint.ResumableProver(small_cfg, SECRET, path, fused=True, device="cpu").run() == golden_proof
+    checkpoint.ResumableProver(small_cfg, SECRET, path, fused=True, device="cpu").run(stop_after="fused")
+    assert checkpoint.ResumableProver(small_cfg, SECRET, path, device="cpu").run() == golden_proof

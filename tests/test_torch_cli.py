@@ -88,7 +88,7 @@ def test_prove_with_checkpoint_resumes(tmp_path, capsys):
     assert not os.path.exists(ck)
     assert main(args + ["prove", "--secret", "31415", "--out", out2, "--checkpoint", ck]) == 0
     cfg = StarkConfig(trace_len=63, boundary_last=int(fibonacci_sq_trace(63, 31415)[-1]))
-    assert ResumableProver(cfg, 31415, ck, fused=True).run(stop_after="fused") is None
+    assert ResumableProver(cfg, 31415, ck, fused=True, device="cpu").run(stop_after="fused") is None
     assert main(args + ["prove", "--secret", "31415", "--out", out3, "--checkpoint", ck]) == 0
     assert not os.path.exists(ck)
     blobs = {open(p, "rb").read() for p in (out1, out2, out3)}
@@ -144,3 +144,30 @@ def test_device_cuda_without_a_card_exits_nonzero(tmp_path):
     assert res.returncode != 0
     assert "CUDA is not available" in res.stderr
     assert not (tmp_path / "p.bin").exists()
+
+
+def test_sass_counts_parses_kernels_and_loops():
+    """tools.sass_counts on a cuobjdump-style listing: opcodes by family,
+    predicated lines, and a loop as a backward branch with its target."""
+    from zkstark_tpu_torch.tools import sass_counts
+
+    listing = """
+        Function : _ZN3foo15ntt_rows_kernelILi12EEEvNS_8RowsArgsE
+    .headerflags    @"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;       /* 0x00000a00ff017b82 */
+        /*0010*/                   LDS R2, [R3] ;
+        /*0020*/                   IMAD.WIDE.U32 R2, R3, R4, RZ ;
+        /*0030*/                   STS [R3], R2 ;
+        /*0040*/              @!P0 BRA 0x10 ;
+        /*0050*/                   EXIT ;
+        Function : other
+        /*0000*/                   EXIT ;
+    """
+    parsed = sass_counts.parse(listing)
+    assert [len(v) for v in parsed.values()] == [6, 1]
+    got = sass_counts.summarize(next(iter(parsed.values())))
+    assert got["ops"] == 6 and got["top"]["IMAD"] == 1
+    assert got["loops"] == [
+        {"from": "0x10", "to": "0x40", "ops": 4, "LDS": 1, "STS": 1,
+         "top": {"LDS": 1, "IMAD": 1, "STS": 1, "BRA": 1}}
+    ]

@@ -6,8 +6,10 @@ no JAX, so it also runs on a machine with a card and no JAX:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Shapes the prove path does not reach are covered here: ragged hash counts,
-every row length 2..8192 for both row kernels (DIT and Pease), the second
-prime, both four-step routes, and the wrappers' input checks.
+every row length 2..8192 for both row kernels (DIT and Pease) at ragged batch
+sizes, each fused option of `ntt_rows` alone and all together, ragged
+transposes with a missing tail, the second prime, both four-step routes, the
+LDE entry points against the CPU, and the wrappers' input checks.
 """
 
 import numpy as np
@@ -49,14 +51,78 @@ def test_node_kernel_ragged(dev, k):
     _eq(sha256_kernel.node_hash_pairs(children), sha256_kernel.node_hash_pairs_plain(children))
 
 
-@pytest.mark.parametrize("field", [fp.FIELD101, fp.FIELD_ALT], ids=["p101", "alt"])
+FIELDS = pytest.mark.parametrize("field", [fp.FIELD101, fp.FIELD_ALT], ids=["p101", "alt"])
+
+
+def _rand_mont(field, shape, seed, dev):
+    rng = np.random.default_rng(seed)
+    return fp.from_host(field.host_to_mont(rng.integers(0, field.p, shape, dtype=np.uint64)), dev)
+
+
+@FIELDS
+@pytest.mark.parametrize("batch", [1, 3, 257])
 @pytest.mark.parametrize("log_m", range(1, 14))
-def test_ntt_rows_every_length(dev, field, log_m):
+def test_ntt_rows_every_length(dev, field, log_m, batch):
     m = 1 << log_m
-    rng = np.random.default_rng(log_m)
-    x = fp.from_host(field.host_to_mont(rng.integers(0, field.p, (3, m), dtype=np.uint64)), dev)
+    x = _rand_mont(field, (batch, m), log_m, dev)
     w = ntt_core.forward_plan(m, field).root
-    _eq(ntt_kernel.ntt_rows(x, w, field), ntt_kernel.ntt_rows_plain(x, ntt_kernel.stage_twiddles(m, w, field), field))
+    _eq(ntt_kernel.ntt_rows(x, w, field), ntt_kernel.ntt_rows_plain(x, w, field))
+
+
+def _fused_options(field, batch, m, dev, seed):
+    """Every fused option of `ntt_rows` for a (batch, m) block, by name."""
+    geo = ntt_kernel.GeoScale
+    vblk = 2 if batch % 2 == 0 else 1
+    size = 1 << (2 * batch * m).bit_length()  # a power of two above every exponent
+    return {
+        "pre": dict(pre=geo(5, m)),
+        "pre_rows": dict(pre=geo(7, size, col_stride=batch, row_stride=1)),
+        "uv": dict(uv=(_rand_mont(field, (batch // vblk, m), seed + 1, dev),
+                       _rand_mont(field, (vblk, m), seed + 2, dev))),
+        "post": dict(post=geo(11, size, col_stride=batch, row_stride=1)),
+        "scale": dict(scale=field.mont_scalar(pow(m, field.p - 2, field.p))),
+    }
+
+
+@FIELDS
+@pytest.mark.parametrize("option", ["short", "pre", "pre_rows", "uv", "post", "scale", "all"])
+@pytest.mark.parametrize("log_m", range(1, 14))
+def test_ntt_rows_fused_options(dev, field, log_m, option):
+    """Each fused option alone and all together, on a short valid prefix
+    wherever a pre-scale is on, at an even and an odd batch."""
+    m = 1 << log_m
+    for batch in (3, 6):
+        opts = _fused_options(field, batch, m, dev, 31 * log_m + batch)
+        if option == "all":
+            kw = {k: v for name in ("pre_rows", "uv", "post", "scale") for k, v in opts[name].items()}
+        else:
+            kw = opts.get(option, {})
+        short = option in ("short", "pre", "pre_rows", "all")
+        valid = max(1, m // 8 + (log_m % 2)) if short else m  # odd lengths take 4-byte loads
+        x = _rand_mont(field, (batch, valid), log_m, dev)
+        w = ntt_core.forward_plan(m, field).root
+        got = ntt_kernel.ntt_rows(x, w, field, m=m, **kw)
+        _eq(got, ntt_kernel.ntt_rows_plain(x, w, field, m=m, **kw))
+
+
+def test_ntt_rows_unaligned_views(dev):
+    """A row block that does not start on 16 bytes takes the 4-byte accesses."""
+    field, m = fp.FIELD101, 64
+    x = _rand_mont(field, 4 * m + 1, 5, dev)[1:].reshape(4, m)
+    w = ntt_core.forward_plan(m, field).root
+    _eq(ntt_kernel.ntt_rows(x, w, field), ntt_kernel.ntt_rows_plain(x, w, field))
+
+
+@pytest.mark.parametrize(
+    "rows,cols,missing",
+    [(1, 1, 0), (32, 32, 0), (33, 65, 0), (7, 1000, 13), (1000, 7, 6999), (512, 4096, 4096 * 448),
+     (257, 129, 1)],
+)
+def test_transpose_ragged(dev, rows, cols, missing):
+    x = fp.from_host(_u32(rows * cols - missing, rows), dev)
+    got = ntt_kernel.transpose(x, rows, cols)
+    assert got.shape == (cols, rows)
+    _eq(got, ntt_kernel.transpose_plain(x, rows, cols))
 
 
 @pytest.mark.parametrize("field", [fp.FIELD101, fp.FIELD_ALT], ids=["p101", "alt"])
@@ -78,8 +144,40 @@ def test_fourstep_on_card_equals_cpu(dev, monkeypatch, pease):
     plan = ntt_core.forward_plan(n)
     counter = "pease_launches" if pease == "on" else "ntt_launches"
     before = getattr(ntt_kernel, counter)
+    moved = ntt_kernel.transpose_launches
     _eq(ntt_core.ntt(fp.from_host(x, dev), plan), ntt_core.ntt(fp.from_host(x, "cpu"), plan))
     assert getattr(ntt_kernel, counter) == before + 2
+    assert ntt_kernel.transpose_launches == moved + (0 if pease == "on" else 3)
+
+
+@FIELDS
+@pytest.mark.parametrize("pease", ["off", "on"])
+@pytest.mark.parametrize("log_n", [10, 13, 14, 17])
+def test_lde_entry_points_on_card_equal_cpu(dev, monkeypatch, field, pease, log_n):
+    """coset_ntt of a short coefficient vector, intt and coset_intt."""
+    monkeypatch.setenv("ZKSTARK_PEASE", pease)
+    n = 1 << log_n
+    rng = np.random.default_rng(log_n)
+    coeffs = field.host_to_mont(rng.integers(0, field.p, n // 8, dtype=np.uint64))
+    evals = ntt_core.coset_ntt(fp.from_host(coeffs, dev), n, 5, field)
+    _eq(evals, ntt_core.coset_ntt(fp.from_host(coeffs, "cpu"), n, 5, field))
+    back = ntt_core.coset_intt(evals, 5, field)
+    np.testing.assert_array_equal(fp.to_host(back)[: n // 8], coeffs)
+    assert not fp.to_host(back)[n // 8 :].any()
+    plan = ntt_core.inverse_plan(n, field)
+    _eq(ntt_core.intt(evals, plan), ntt_core.intt(evals.cpu(), plan))
+
+
+def test_device_tables_upload_once(dev):
+    """A second transform of the same size uploads no table."""
+    n = 1 << 14
+    x = _rand_mont(fp.FIELD101, n // 4, 3, dev)
+    ntt_core.coset_ntt(x, n, 5)
+    uv, geo = ntt_kernel._device_uv.cache_info(), ntt_kernel._geo_tables.cache_info()
+    ntt_core.coset_ntt(x, n, 5)
+    assert ntt_kernel._device_uv.cache_info().misses == uv.misses
+    assert ntt_kernel._geo_tables.cache_info().misses == geo.misses
+    assert ntt_kernel._device_uv.cache_info().hits == uv.hits + 1
 
 
 def test_wrappers_reject_bad_input(dev):
@@ -91,6 +189,10 @@ def test_wrappers_reject_bad_input(dev):
         ntt_kernel.ntt_rows(fp.from_host(_u32((4, 8), 2), dev).t(), 1)
     with pytest.raises(ValueError):
         ntt_kernel.ntt_rows(fp.from_host(_u32((1, 16384), 3), dev), 1)
+    with pytest.raises(ValueError):
+        ntt_kernel.ntt_rows(fp.from_host(_u32((2, 16), 3), dev), 1, m=8)
+    with pytest.raises(ValueError):
+        ntt_kernel.transpose(fp.from_host(_u32(65, 3), dev), 8, 8)
     with pytest.raises(ValueError):
         ntt_kernel.ntt_rows_pease(fp.from_host(_u32((4, 8), 2), dev).t(), 1)
     with pytest.raises(ValueError):

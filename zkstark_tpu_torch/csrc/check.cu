@@ -18,11 +18,14 @@ __global__ void fp_check_kernel(const uint32_t* __restrict__ a, const uint32_t* 
   out[n + i] = fp_add(x, y, f);
   out[2 * n + i] = fp_sub(x, y, f);
   out[3 * n + i] = fp_reduce(x, f);  // from_mont
+  out[4 * n + i] = fp_mul_r(x, y, f);
+  out[5 * n + i] = fp_add_r(x, y, f);
 }
 
 }  // namespace
 
-// a, b: (n,) uint32 -> out: (4, n) rows mont_mul, add, sub, from_mont(a).
+// a, b: (n,) uint32 -> out: (6, n) rows mont_mul, add, sub, from_mont(a), and the
+// reduced-input forms fp_mul_r, fp_add_r (meaningful where a, b < p).
 extern "C" int zk_fp_check(const uint32_t* a, const uint32_t* b, uint32_t* out, int64_t n,
                            uint32_t p, uint32_t pinv, cudaStream_t stream) {
   if (n < 0 || n > 0x7fffffffLL * 256) return static_cast<int>(cudaErrorInvalidValue);

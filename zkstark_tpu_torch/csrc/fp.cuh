@@ -13,6 +13,15 @@
 //    then reduced once. A naive (t + (uint64_t)m*p) >> 32 overflows.
 //  * In add, a + b can wrap 32 bits; the sum is taken in 64 bits.
 // Both give the JAX results bit for bit, including on unreduced inputs.
+//
+// 2p > 2^32 also rules out lazy reduction: a value kept in [0, 2p) does not
+// fit a word, so every add and subtract reduces to [0, p) at once.
+//
+// fp_mul_r and fp_add_r are the forms for operands known to be reduced
+// (a, b < p), as every word inside the NTT row kernel is: they stay in 32
+// bits and take about half the machine ops. On reduced operands they return
+// the same words as fp_mul and fp_add (the one residue in [0, p)); on others
+// they are not defined.
 #pragma once
 
 #include <cstdint>
@@ -42,4 +51,23 @@ __device__ __forceinline__ uint32_t fp_add(uint32_t a, uint32_t b, Fp f) {
 __device__ __forceinline__ uint32_t fp_sub(uint32_t a, uint32_t b, Fp f) {
   const uint32_t d = a - b;
   return a < b ? d + f.p : d;
+}
+
+// a·b·R^{-1} mod p for a, b < p. With m = lo(t)·p^{-1} mod 2^32 the low words
+// of t and m·p are equal, so (t - m·p)/2^32 = hi(t) - hi(m·p) exactly, a value
+// in (-p, p): one borrow test brings it to [0, p).
+__device__ __forceinline__ uint32_t fp_mul_r(uint32_t a, uint32_t b, Fp f) {
+  const uint64_t t = static_cast<uint64_t>(a) * b;
+  const uint32_t m = static_cast<uint32_t>(t) * (0u - f.pinv);
+  const uint32_t hi = static_cast<uint32_t>(t >> 32);
+  const uint32_t mph = __umulhi(m, f.p);
+  const uint32_t d = hi - mph;
+  return hi < mph ? d + f.p : d;
+}
+
+// a + b mod p for a, b < p, as a - (p - b) with one borrow test: no 33-bit sum.
+__device__ __forceinline__ uint32_t fp_add_r(uint32_t a, uint32_t b, Fp f) {
+  const uint32_t nb = f.p - b;
+  const uint32_t d = a - nb;
+  return a < nb ? d + f.p : d;
 }

@@ -8,10 +8,13 @@ only on the size n, never on the device:
   * larger n: the four-step factorization (`ops.ntt_kernel.ntt_fourstep`),
     whose two passes of row transforms are `ntt_rows` calls as well.
 
-`ntt_rows` launches the CUDA kernel (csrc/ntt.cu) on a CUDA tensor and its
-plain-torch twin on a CPU tensor, so the CPU tests run the same glue.
 Evaluation on the coset offset·⟨h⟩ (prover.rs:69) is a pointwise pre-scale by
-offset^j followed by a plain NTT.
+offset^j followed by a plain NTT. The pre-scale, the zero tail of a short
+coefficient vector, an INTT's 1/n and the inverse coset scale are all handed
+to `ntt_rows`, which applies them on load or on store: on a CUDA tensor
+`ntt`, `intt`, `coset_ntt` and `coset_intt` launch hand-written kernels only
+(csrc/ntt.cu, csrc/transpose.cu), on a CPU tensor the kernels' plain-torch
+twins, so the CPU tests run the same glue.
 """
 
 from __future__ import annotations
@@ -24,11 +27,6 @@ import torch
 
 from zkstark_tpu_torch.field import fp
 from zkstark_tpu_torch.field.fp import FIELD101, Field
-
-# Domains up to this size take their offset powers from an exact host table;
-# above it they are computed on the device, as the JAX package does.
-_HOST_CONST_MAX = 1 << 20
-
 
 def bit_reverse_indices(n: int) -> np.ndarray:
     """perm[i] = bit-reverse of i in log2(n) bits."""
@@ -88,66 +86,59 @@ def _use_fourstep(x: torch.Tensor, n: int) -> bool:
     return True
 
 
+def _transform(x: torch.Tensor, plan: NttPlan, scaled: bool, pre=None, post=None):
+    """The size-n transform of `plan` along the last axis of x, whose last
+    axis may be shorter than n (the tail taken as zero): input j times
+    pre^j, output k times post^k (standard-form residues) and, if `scaled`,
+    times the plan's n^{-1}."""
+    from zkstark_tpu_torch.ops import ntt_kernel
+
+    n, field = plan.n, plan.field
+    w = _effective_root(plan)
+    scale = plan.scale_mont if scaled else None
+    if _use_fourstep(x, n):
+        return ntt_kernel.ntt_fourstep(
+            fp.as_u32(fp.as_i32(x).contiguous()), n, w, scale, field,
+            pre_offset=pre, post_offset=post,
+        )
+    rows = fp.as_u32(fp.as_i32(x).reshape(-1, x.shape[-1]).contiguous())
+    geo = ntt_kernel.GeoScale
+    out = ntt_kernel.ntt_rows(
+        rows,
+        w,
+        field,
+        m=n,
+        pre=None if pre is None else geo(pre, n),
+        post=None if post is None else geo(post, n),
+        scale=scale,
+    )
+    return out.reshape(x.shape[:-1] + (n,))
+
+
 def ntt(x: torch.Tensor, plan: NttPlan) -> torch.Tensor:
     """X[k] = Σ_j x[j]·ω^{jk} along the last axis; leading axes are
     independent transforms (below the four-step size)."""
-    from zkstark_tpu_torch.ops import ntt_kernel
-
-    n = plan.n
-    assert x.shape[-1] == n
-    w = _effective_root(plan)
-    if _use_fourstep(x, n):
-        return ntt_kernel.ntt_fourstep(x, n, w, field=plan.field)
-    rows = fp.as_u32(fp.as_i32(x).reshape(-1, n).contiguous())
-    return ntt_kernel.ntt_rows(rows, w, plan.field).reshape(x.shape)
+    assert x.shape[-1] == plan.n
+    return _transform(x, plan, scaled=False)
 
 
 def intt(x: torch.Tensor, plan: NttPlan) -> torch.Tensor:
-    """x[j] = n^{-1}·Σ_k X[k]·ω^{-jk}; the plan must be an inverse plan."""
-    from zkstark_tpu_torch.ops import ntt_kernel
-
+    """x[j] = n^{-1}·Σ_k X[k]·ω^{-jk}; the plan must be an inverse plan. The
+    1/n is applied by the row kernel on store (below the four-step size) or
+    folded into the four-step twiddle table."""
     assert plan.scale_mont is not None, "intt needs a plan built with inverse=True"
-    if _use_fourstep(x, plan.n):
-        # n^{-1} folds into the four-step twiddle table
-        return ntt_kernel.ntt_fourstep(
-            x,
-            plan.n,
-            _effective_root(plan),
-            inverse_scale=plan.scale_mont,
-            field=plan.field,
-        )
-    return fp.mont_mul_f(plan.field, ntt(x, plan), plan.scale_mont)
-
-
-@functools.lru_cache(maxsize=None)
-def _offset_powers_mont(n: int, offset: int, invert: bool, field: Field = FIELD101):
-    o = pow(offset, field.p - 2, field.p) if invert else offset % field.p
-    return field.host_to_mont(field.host_powers_pow2(o, n))
-
-
-def _offset_powers(n: int, offset: int, invert: bool, field: Field, device):
-    if n > _HOST_CONST_MAX:
-        o = pow(offset, field.p - 2, field.p) if invert else offset
-        return fp.powers_iota_f(field, o, n, device=device)
-    return fp.from_host(_offset_powers_mont(n, offset, invert, field), device)
+    assert x.shape[-1] == plan.n
+    return _transform(x, plan, scaled=True)
 
 
 def coset_ntt(coeffs: torch.Tensor, n: int, offset: int, field: Field = FIELD101):
     """Evaluate the polynomial with `coeffs` (length ≤ n, Montgomery form) on
-    the coset {offset·h^i} in natural order (prover.rs:69-70)."""
-    k = coeffs.shape[-1]
-    dev = coeffs.device
-    if k < n:
-        pad = fp.zeros(coeffs.shape[:-1] + (n - k,), dev)
-        coeffs = fp.as_u32(torch.cat([fp.as_i32(coeffs), fp.as_i32(pad)], dim=-1))
-    scaled = fp.mont_mul_f(field, coeffs, _offset_powers(n, offset, False, field, dev))
-    return ntt(scaled, forward_plan(n, field))
+    the coset {offset·h^i} in natural order (prover.rs:69-70). The zero tail
+    of the coefficients is neither allocated nor read."""
+    return _transform(coeffs, forward_plan(n, field), scaled=False, pre=offset % field.p)
 
 
 def coset_intt(evals: torch.Tensor, offset: int, field: Field = FIELD101):
     """Inverse of coset_ntt: coefficients from coset evaluations."""
-    n = evals.shape[-1]
-    coeffs = intt(evals, inverse_plan(n, field))
-    return fp.mont_mul_f(
-        field, coeffs, _offset_powers(n, offset, True, field, evals.device)
-    )
+    plan = inverse_plan(evals.shape[-1], field)
+    return _transform(evals, plan, scaled=True, post=pow(offset, field.p - 2, field.p))

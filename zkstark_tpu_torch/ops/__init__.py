@@ -12,6 +12,7 @@ def launch_counts() -> dict:
         "sha256_leaf": sha256_kernel.leaf_launches,
         "sha256_node": sha256_kernel.node_launches,
         "ntt_rows": ntt_kernel.ntt_launches,
+        "transpose": ntt_kernel.transpose_launches,
         "ntt_rows_pease": ntt_kernel.pease_launches,
     }
 
@@ -20,4 +21,5 @@ def reset_launch_counts() -> None:
     sha256_kernel.leaf_launches = 0
     sha256_kernel.node_launches = 0
     ntt_kernel.ntt_launches = 0
+    ntt_kernel.transpose_launches = 0
     ntt_kernel.pease_launches = 0

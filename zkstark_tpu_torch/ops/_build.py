@@ -31,15 +31,24 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _U32 = ctypes.c_uint32
+_INT = ctypes.c_int
 _SIGNATURES = {
     # (vals, out, n, stream)
     "zk_sha256_leaf": (_P, _P, _I64, _P),
     # (children, out, k, stream)
     "zk_sha256_node": (_P, _P, _I64, _P),
-    # (x, out, stage_tw, log_m, batch, p, p_inv_neg, stream)
-    "zk_ntt_rows": (_P, _P, _P, ctypes.c_int, _I64, _U32, _U32, _P),
+    # (x, out, pass_tw, log_m, batch, valid, w8, w4, w8^3,
+    #  pre: a, b, shift, col_stride, row_stride, post: the same five,
+    #  ut, vt, log2(vblk), scale, has_scale, p, p_inv_neg, stream)
+    "zk_ntt_rows": (
+        _P, _P, _P, _INT, _I64, _INT, _U32, _U32, _U32,
+        _P, _P, _INT, _U32, _U32, _P, _P, _INT, _U32, _U32,
+        _P, _P, _INT, _U32, _INT, _U32, _U32, _P,
+    ),
+    # (src, dst, rows, cols, valid, stream)
+    "zk_transpose": (_P, _P, _INT, _INT, _I64, _P),
     # (x, out, tw, log_m, batch, p, p_inv_neg, stream)
-    "zk_ntt_rows_pease": (_P, _P, _P, ctypes.c_int, _I64, _U32, _U32, _P),
+    "zk_ntt_rows_pease": (_P, _P, _P, _INT, _I64, _U32, _U32, _P),
     # (a, b, out, n, p, p_inv_neg, stream)
     "zk_fp_check": (_P, _P, _P, _I64, _U32, _U32, _P),
 }

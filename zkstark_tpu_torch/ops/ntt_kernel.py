@@ -1,36 +1,52 @@
-"""NTT row transforms on Hopper (CUDA kernel B, ``csrc/ntt.cu``) and the
-four-step glue around them.
+"""NTT row transforms on Hopper (CUDA kernel B, ``csrc/ntt.cu``), the tiled
+transpose (kernel E, ``csrc/transpose.cu``) and the four-step glue.
 
 `ntt_rows` replaces the Pallas kernel ``zkstark_tpu/ops/ntt_kernel.py``
 ``_ntt_cols_kernel`` (and, on the card, the jnp radix-2 chain of
-``zkstark_tpu/ntt/core.py`` ``_butterflies`` below 2^14). One thread block
-runs one length-m transform (m ≤ 8192) entirely in shared memory: the row is
-loaded once in bit-reversed order (32 KB at m = 8192), all log2(m) radix-2
-DIT stages run between ``__syncthreads()`` barriers, and the natural-order
-result is stored once. What bounds it on the H100 is per-stage work, not
-device memory: each stage is a shared-memory read and write of the whole row
-plus m/2 Montgomery multiplies (one 32×32→64 multiply, one 32×32 low
-multiply and one ``__umulhi`` each). The design keeps every stage on chip and
-uses the native wide multiply; the TPU's 16-bit-limb product and its
-column-oriented (m, 128) lane layout are not carried over.
+``zkstark_tpu/ntt/core.py`` ``_butterflies`` below 2^14) together with the
+elementwise glue XLA fused around it on the TPU. One thread block runs one
+length-m transform (m ≤ 8192): a Stockham autosort between two shared-memory
+buffers, radix 8 with a thread's 8 words in registers (5 passes and 5
+barriers at m = 8192), natural order in and out with no bit-reversed scatter,
+16-byte loads and stores. Its contract covers the whole LDE:
+
+  * the row may hold fewer than m words; the missing tail counts as zero and
+    is neither allocated nor read (``m=``);
+  * on load, word (row r, column i) is multiplied by base^e, e = i·col_stride
+    + r·row_stride, taken as A[e >> s]·B[e & (2^s − 1)] from two small cached
+    device tables (``pre=``, a `GeoScale`: the coset offset);
+  * on store, by the four-step twiddle U.T[r // vblk, i]·V.T[r % vblk, i]
+    (``uv=``), by another `GeoScale` (``post=``: the inverse coset offset) and
+    by a scalar (``scale=``: an INTT's 1/n).
+
+`transpose` replaces the transposes XLA fused into the JAX four-step; it reads
+a (rows, cols) matrix whose missing tail is zero and writes (cols, rows).
 
 A flat size-n transform (n = n1·n2, n ≥ `MIN_FOURSTEP`) is the four-step
 factorization
 
     X[k1 + n1·k2] = Σ_{j2} ω^{j2·k1} (ω^{n1})^{j2·k2} · Σ_{j1} x[j1·n2+j2] (ω^{n2})^{j1·k1}
 
-  1. transpose to (n2, n1) and row-transform with root ω^{n2}  [kernel]
-  2. twiddle by ω^{k1·j2}, factored as U[k1, jh]·V[k1, jl]     [torch]
-  3. transpose to (n1, n2) and row-transform with root ω^{n1}  [kernel]
-  4. transpose back, so the flat result is in natural order      [torch]
+  1. transpose to (n2, n1)                                       [kernel E]
+  2. row-transform with root ω^{n2}, pre-scale on load, twiddle
+     ω^{k1·j2} = U[k1, jh]·V[k1, jl] on store                    [kernel B]
+  3. transpose to (n1, n2)                                       [kernel E]
+  4. row-transform with root ω^{n1}, post-scale on store         [kernel B]
+  5. transpose back, so the flat result is in natural order      [kernel E]
+
+On a CUDA tensor every step is a hand-written kernel and every table is on
+the device already (`_device_uv`, `_geo_tables`, `_device_table`, each
+cached). On a CPU tensor each wrapper runs its plain-torch twin, which takes
+the same arguments.
 
 With ``ZKSTARK_PEASE=on`` (the JAX package's own switch, `pease_enabled`,
 read at every call) both passes run `ntt_rows_pease` instead (CUDA kernel D,
 ``csrc/ntt_pease.cu``): the constant-geometry DIF transform of
-``_ntt_cols_pease_kernel``, natural rows in and bit-reversed rows out. The
-bit-reversals then fall along dim 1; they are undone without a strided
-pass: the columns of U.T and V.T are permuted by br1 (host constants), and
-the transposes of steps 3 and 4 become row gathers of the transposed views.
+``_ntt_cols_pease_kernel``, natural rows in and bit-reversed rows out, with
+plain-torch glue. The bit-reversals then fall along dim 1; they are undone
+without a strided pass: the columns of U.T and V.T are permuted by br1 (host
+constants), and the transposes of steps 3 and 5 become row gathers of the
+transposed views.
 
 Outputs equal the radix-2 transform exactly (pure field identities).
 """
@@ -39,6 +55,7 @@ from __future__ import annotations
 
 import functools
 import os
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -48,11 +65,12 @@ from zkstark_tpu_torch.field.fp import FIELD101, Field
 from zkstark_tpu_torch.ntt.core import bit_reverse_indices
 from zkstark_tpu_torch.ops import _build
 
-MAX_ROW = 8192  # longest row one block transforms (shared memory: 4·m bytes)
+MAX_ROW = 8192  # longest row one block transforms
 MIN_FOURSTEP = 1 << 14  # flat transforms from this size take the four-step glue
 _VBLK = 128  # width of the V factor of the four-step twiddle (capped at n2)
 
 ntt_launches = 0  # launches of the CUDA kernel, counted by ntt_rows
+transpose_launches = 0  # launches of the transpose kernel, counted by transpose
 pease_launches = 0  # launches of the Pease kernel, counted by ntt_rows_pease
 
 
@@ -65,8 +83,8 @@ def pease_enabled() -> bool:
 
 @functools.lru_cache(maxsize=None)
 def stage_twiddles(m: int, w: int, field: Field = FIELD101) -> np.ndarray:
-    """(m−1,) uint32 Montgomery stage table for a length-m transform with
-    root w: stage s (half = 2^s) sits at offset half−1 and holds
+    """(m−1,) uint32 Montgomery stage table of the radix-2 transform (the
+    plain twin's): stage s (half = 2^s) sits at offset half−1 and holds
     ω_{2·half}^j for j < half, with ω_{2·half} = w^{m/(2·half)}."""
     parts = []
     for s in range(m.bit_length() - 1):
@@ -75,49 +93,137 @@ def stage_twiddles(m: int, w: int, field: Field = FIELD101) -> np.ndarray:
     return np.concatenate(parts)
 
 
+def pass_radices(m: int) -> list[int]:
+    """The kernel's Stockham passes for a length-m row: radix 8 as often as
+    it fits, then one radix-4 or radix-2 pass for the stages left over."""
+    bits = m.bit_length() - 1
+    return [8] * (bits // 3) + ([1 << (bits % 3)] if bits % 3 else [])
+
+
+@functools.lru_cache(maxsize=None)
+def pass_twiddles(m: int, w: int, field: Field = FIELD101) -> np.ndarray:
+    """(m−1,) uint32 Montgomery pass table of the kernel: the pass of radix R
+    at Ns (the product of the radices before it) sits at offset Ns−1 and
+    holds W^{r·q} at (r−1)·Ns + q for 1 ≤ r < R, q < Ns, W = w^{m/(R·Ns)}."""
+    parts, ns = [], 1
+    for radix in pass_radices(m):
+        wq = field.host_powers_pow2(pow(w, m // (radix * ns), field.p), ns)  # W^q
+        for r in range(1, radix):
+            parts.append(field.host_to_mont(field.host_pow_vec(wq, r)))
+        ns *= radix
+    return np.concatenate(parts)
+
+
+@functools.lru_cache(maxsize=None)
+def _radix8_constants(m: int, w: int, field: Field) -> tuple[int, int, int]:
+    """W8, W8² = W4 and W8³ in Montgomery form for W8 = w^{m/8}: the inner
+    twiddles of a radix-8 (and radix-4) pass; 0 where m is too short."""
+    w8 = pow(w, m // 8, field.p) if m >= 8 else 0
+    w4 = pow(w, m // 4, field.p) if m >= 4 else 0
+    return (
+        field.mont_scalar(w8) if m >= 8 else 0,
+        field.mont_scalar(w4) if m >= 4 else 0,
+        field.mont_scalar(pow(w8, 3, field.p)) if m >= 8 else 0,
+    )
+
+
 @functools.lru_cache(maxsize=64)
 def _device_table(table, m: int, w: int, field: Field, device: torch.device):
     """table(m, w, field) (a host numpy twiddle table) on `device`."""
     return fp.from_host(table(m, w, field), device)
 
 
-def _row_transform(kernel: str, x: torch.Tensor, w: int, field: Field, table, plain):
-    """The two row kernels' shared wrapper: checks x, then launches
-    ``zk_<kernel>`` on a CUDA tensor (or raises) or runs `plain` on a CPU
-    tensor. Returns (out, whether the kernel was launched)."""
-    _build.require(x, kernel, 2)
-    batch, m = x.shape
+@dataclass(frozen=True)
+class GeoScale:
+    """Word (row r, column i) times base^e, e = i·col_stride + r·row_stride
+    < size (a power of two); base is a standard-form residue."""
+
+    base: int
+    size: int
+    col_stride: int = 1
+    row_stride: int = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _geo_tables_host(base: int, size: int, field: Field = FIELD101):
+    """(A, B, s): base^e = A[e >> s]·B[e & (2^s − 1)] for e < size, as
+    uint32 Montgomery numpy; 2^s entries in B, size/2^s in A."""
+    s = (size.bit_length() - 1) // 2
+    b = field.host_powers_pow2(base, 1 << s)
+    a = field.host_powers_pow2(pow(base, 1 << s, field.p), size >> s)
+    return field.host_to_mont(a), field.host_to_mont(b), s
+
+
+@functools.lru_cache(maxsize=64)
+def _geo_tables(base: int, size: int, field: Field, device: torch.device):
+    """`_geo_tables_host` on `device`, uploaded once."""
+    a, b, s = _geo_tables_host(base, size, field)
+    return fp.from_host(a, device), fp.from_host(b, device), s
+
+
+def _geo_factor_plain(geo: GeoScale, rows: int, cols: int, field: Field, device):
+    """The plain twin's factor matrix, (rows, cols) or (1, cols) int64."""
+    a, b, s = _geo_tables(geo.base % field.p, geo.size, field, torch.device(device))
+    i = torch.arange(cols, dtype=torch.int64, device=device)[None, :]
+    r = torch.arange(rows if geo.row_stride else 1, dtype=torch.int64, device=device)[:, None]
+    e = i * geo.col_stride + r * geo.row_stride
+    return fp.mont_mul_w(field, fp.wide(a)[e >> s], fp.wide(b)[e & ((1 << s) - 1)])
+
+
+def _check_rows_args(x, m, pre, post, uv):
+    _build.require(x, "ntt_rows", 2)
+    batch, valid = x.shape
+    m = valid if m is None else m
     if m < 2 or m > MAX_ROW or m & (m - 1):
-        raise ValueError(f"{kernel}: row length {m} is not a power of two in [2, {MAX_ROW}]")
-    if x.device.type == "cpu":
-        return plain(x, table(m, w, field), field), False
-    out = torch.empty_like(x)
-    if batch == 0:
-        return out, False
-    tw_d = _device_table(table, m, w, field, x.device)
-    launch = getattr(_build.kernels(), f"zk_{kernel}")
-    with torch.cuda.device(x.device):
-        rc = launch(
-            x.data_ptr(),
-            out.data_ptr(),
-            tw_d.data_ptr(),
-            m.bit_length() - 1,
-            batch,
-            field.p,
-            field.p_inv_neg,
-            _build.stream(x),
-        )
-    _build.check(rc, kernel)
-    return out, True
+        raise ValueError(f"ntt_rows: row length {m} is not a power of two in [2, {MAX_ROW}]")
+    if valid < 1 or valid > m:
+        raise ValueError(f"ntt_rows: rows of {valid} words do not fit a length-{m} transform")
+    for geo in (pre, post):
+        if geo is None:
+            continue
+        size = geo.size
+        last = (m - 1) * geo.col_stride + (batch - 1) * geo.row_stride
+        if size < 1 or size & (size - 1) or size > 1 << 31 or (batch and last >= size):
+            raise ValueError(f"ntt_rows: {geo} does not cover a ({batch}, {m}) block")
+    if uv is not None:
+        ut, vt = uv
+        for t in (ut, vt):
+            _build.require(t, "ntt_rows twiddle", 2)
+            if t.device != x.device or t.shape[1] != m:
+                raise ValueError("ntt_rows: twiddle tables must be (·, m) on the input's device")
+        vblk = vt.shape[0]
+        if vblk < 1 or vblk & (vblk - 1) or ut.shape[0] * vblk != batch:
+            raise ValueError(
+                f"ntt_rows: twiddle tables {tuple(ut.shape)}, {tuple(vt.shape)} do not "
+                f"cover {batch} rows"
+            )
+    return batch, valid, m
 
 
-def ntt_rows_plain(x: torch.Tensor, tw: np.ndarray, field: Field = FIELD101):
-    """Plain-torch twin of the kernel: bit-reversal gather, then the radix-2
-    DIT stages over whole rows. x (batch, m) uint32, natural order in/out."""
-    b, m = x.shape
+def ntt_rows_plain(
+    x: torch.Tensor,
+    w: int,
+    field: Field = FIELD101,
+    *,
+    m: int | None = None,
+    pre: GeoScale | None = None,
+    post: GeoScale | None = None,
+    uv: tuple | None = None,
+    scale: int | None = None,
+) -> torch.Tensor:
+    """Plain-torch twin of the kernel, same arguments: the scales and the
+    zero tail as whole-tensor ops around a bit-reversal gather and the
+    radix-2 DIT stages."""
+    b, valid = x.shape
+    m = valid if m is None else m
+    v = fp.wide(x)
+    if pre is not None:
+        v = fp.mont_mul_w(field, v, _geo_factor_plain(pre, b, valid, field, x.device))
+    if valid < m:
+        v = torch.cat([v, torch.zeros((b, m - valid), dtype=torch.int64, device=x.device)], dim=1)
     br = torch.from_numpy(bit_reverse_indices(m).astype(np.int64)).to(x.device)
-    v = fp.wide(x)[:, br]
-    tw_w = torch.from_numpy(tw.astype(np.int64)).to(x.device)
+    v = v[:, br]
+    tw_w = torch.from_numpy(stage_twiddles(m, w, field).astype(np.int64)).to(x.device)
     half = 1
     while half < m:
         blk = v.reshape(b, m // (2 * half), 2 * half)
@@ -126,16 +232,104 @@ def ntt_rows_plain(x: torch.Tensor, tw: np.ndarray, field: Field = FIELD101):
         v = torch.cat([fp.add_w(field, e, o), fp.sub_w(field, e, o)], dim=-1)
         v = v.reshape(b, m)
         half *= 2
+    if uv is not None:
+        uw, vw = fp.wide(uv[0]), fp.wide(uv[1])
+        v3 = v.reshape(uw.shape[0], vw.shape[0], m)
+        v3 = fp.mont_mul_w(field, fp.mont_mul_w(field, v3, uw[:, None, :]), vw[None])
+        v = v3.reshape(b, m)
+    if post is not None:
+        v = fp.mont_mul_w(field, v, _geo_factor_plain(post, b, m, field, x.device))
+    if scale is not None:
+        v = fp.mont_mul_w(field, v, scale)
     return fp.narrow(v)
 
 
-def ntt_rows(x: torch.Tensor, w: int, field: Field = FIELD101) -> torch.Tensor:
+def _geo_args(geo: GeoScale | None, field: Field, device) -> tuple:
+    """(a, b, shift, col_stride, row_stride) as the kernel takes them; the
+    tables stay alive in `_geo_tables`' cache."""
+    if geo is None:
+        return None, None, 0, 0, 0
+    a, b, s = _geo_tables(geo.base % field.p, geo.size, field, device)
+    return a.data_ptr(), b.data_ptr(), s, geo.col_stride, geo.row_stride
+
+
+def ntt_rows(
+    x: torch.Tensor,
+    w: int,
+    field: Field = FIELD101,
+    *,
+    m: int | None = None,
+    pre: GeoScale | None = None,
+    post: GeoScale | None = None,
+    uv: tuple | None = None,
+    scale: int | None = None,
+) -> torch.Tensor:
     """Length-m transform with root w (standard form, exact order m) of every
-    row of x (batch, m) uint32; natural order in and out. A CUDA tensor runs
-    the kernel; a CPU tensor runs `ntt_rows_plain`."""
+    row of x (batch, valid ≤ m) uint32, the tail of each row up to m (default:
+    valid) taken as zero; natural order in and out, result (batch, m).
+    `pre` scales on load, `uv` (the device tables U.T, V.T), `post` and
+    `scale` (a Montgomery scalar) on store. A CUDA tensor runs the kernel; a
+    CPU tensor runs `ntt_rows_plain`."""
     global ntt_launches
-    out, launched = _row_transform("ntt_rows", x, w, field, stage_twiddles, ntt_rows_plain)
-    ntt_launches += launched
+    batch, valid, m = _check_rows_args(x, m, pre, post, uv)
+    if x.device.type == "cpu":
+        return ntt_rows_plain(x, w, field, m=m, pre=pre, post=post, uv=uv, scale=scale)
+    out = torch.empty((batch, m), dtype=torch.uint32, device=x.device)
+    if batch == 0:
+        return out
+    tw_d = _device_table(pass_twiddles, m, w, field, x.device)
+    ut, vt = uv if uv is not None else (None, None)
+    with torch.cuda.device(x.device):
+        rc = _build.kernels().zk_ntt_rows(
+            x.data_ptr(),
+            out.data_ptr(),
+            tw_d.data_ptr(),
+            m.bit_length() - 1,
+            batch,
+            valid,
+            *_radix8_constants(m, w, field),
+            *_geo_args(pre, field, x.device),
+            *_geo_args(post, field, x.device),
+            None if ut is None else ut.data_ptr(),
+            None if vt is None else vt.data_ptr(),
+            0 if vt is None else vt.shape[0].bit_length() - 1,
+            0 if scale is None else scale,
+            0 if scale is None else 1,
+            field.p,
+            field.p_inv_neg,
+            _build.stream(x),
+        )
+    _build.check(rc, "ntt_rows")
+    ntt_launches += 1
+    return out
+
+
+def transpose_plain(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """Plain-torch twin of `transpose`: zero-pad, view, ``.t().contiguous()``."""
+    flat = fp.as_i32(x)
+    if flat.shape[0] < rows * cols:
+        pad = torch.zeros(rows * cols - flat.shape[0], dtype=torch.int32, device=x.device)
+        flat = torch.cat([flat, pad])
+    return fp.as_u32(flat.reshape(rows, cols).t().contiguous())
+
+
+def transpose(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """The (cols, rows) transpose of the row-major (rows, cols) matrix whose
+    first words are the flat uint32 vector x and whose missing tail is zero.
+    A CUDA tensor runs the kernel; a CPU tensor runs `transpose_plain`."""
+    global transpose_launches
+    _build.require(x, "transpose", 1)
+    if rows < 1 or cols < 1 or x.shape[0] > rows * cols or rows > 65535 * 32:
+        raise ValueError(f"transpose: {x.shape[0]} words do not fit a ({rows}, {cols}) matrix")
+    if x.device.type == "cpu":
+        return transpose_plain(x, rows, cols)
+    out = torch.empty((cols, rows), dtype=torch.uint32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _build.kernels().zk_transpose(
+            x.data_ptr(), out.data_ptr(), rows, cols, x.shape[0], _build.stream(x)
+        )
+    _build.check(rc, "transpose")
+    transpose_launches += 1
     return out
 
 
@@ -173,10 +367,29 @@ def ntt_rows_pease(x: torch.Tensor, w: int, field: Field = FIELD101) -> torch.Te
     natural order in, BIT-REVERSED order out. A CUDA tensor runs the Pease
     kernel; a CPU tensor runs `ntt_rows_pease_plain`."""
     global pease_launches
-    out, launched = _row_transform(
-        "ntt_rows_pease", x, w, field, pease_twiddles, ntt_rows_pease_plain
-    )
-    pease_launches += launched
+    _build.require(x, "ntt_rows_pease", 2)
+    batch, m = x.shape
+    if m < 2 or m > MAX_ROW or m & (m - 1):
+        raise ValueError(f"ntt_rows_pease: row length {m} is not a power of two in [2, {MAX_ROW}]")
+    if x.device.type == "cpu":
+        return ntt_rows_pease_plain(x, pease_twiddles(m, w, field), field)
+    out = torch.empty_like(x)
+    if batch == 0:
+        return out
+    tw_d = _device_table(pease_twiddles, m, w, field, x.device)
+    with torch.cuda.device(x.device):
+        rc = _build.kernels().zk_ntt_rows_pease(
+            x.data_ptr(),
+            out.data_ptr(),
+            tw_d.data_ptr(),
+            m.bit_length() - 1,
+            batch,
+            field.p,
+            field.p_inv_neg,
+            _build.stream(x),
+        )
+    _build.check(rc, "ntt_rows_pease")
+    pease_launches += 1
     return out
 
 
@@ -237,8 +450,9 @@ def _twiddle_uv_host(
 
 
 def _apply_twiddle_t(at: torch.Tensor, ut, vt, field: Field = FIELD101):
-    """at[j2, k1]·w^{k1·j2} on the transposed (n2, n1) layout, with
-    j2 = vblk·jh + jl: times U.T[jh, k1], then V.T[jl, k1]."""
+    """The Pease route's twiddle in plain torch: at[j2, k1]·w^{k1·j2} on the
+    transposed (n2, n1) layout, with j2 = vblk·jh + jl: times U.T[jh, k1],
+    then V.T[jl, k1]."""
     n2, n1 = at.shape
     vblk = vt.shape[0]
     a3 = fp.wide(at).reshape(n2 // vblk, vblk, n1)
@@ -248,28 +462,65 @@ def _apply_twiddle_t(at: torch.Tensor, ut, vt, field: Field = FIELD101):
     return fp.narrow(out).reshape(n2, n1)
 
 
+@functools.lru_cache(maxsize=64)
+def _device_uv(n: int, w: int, inverse_scale: int | None, field: Field, device: torch.device):
+    """(n1, n2, U.T, V.T) of `_fourstep_constants` with the tables on
+    `device`, uploaded once."""
+    n1, n2, ut, vt = _fourstep_constants(n, w, inverse_scale, field)
+    return n1, n2, fp.from_host(ut, device), fp.from_host(vt, device)
+
+
+def _fourstep_pease(x, n: int, w: int, inverse_scale, field: Field, pre, post):
+    """The Pease route, with plain-torch glue around `ntt_rows_pease`."""
+    p = field.p
+    if x.shape[0] < n:
+        x = fp.as_u32(torch.cat([fp.as_i32(x), fp.as_i32(fp.zeros(n - x.shape[0], x.device))]))
+    if pre is not None:
+        x = fp.mont_mul_f(field, x, fp.narrow(_geo_factor_plain(pre, 1, n, field, x.device)[0]))
+    n1, n2, ut, vt, br1, br2 = _pease_fourstep_constants(n, w, inverse_scale, field)
+    at = _transpose(x.reshape(n1, n2))  # row j2: x[j1·n2 + j2] over j1
+    at = ntt_rows_pease(at, pow(w, n2, p), field)  # [j2, br1(k1)]
+    tw = _apply_twiddle_t(at, ut, vt, field)  # U.T, V.T columns in br1 order
+    b = _transpose_gather(tw, br1)  # (n1, n2): [k1, j2]
+    d = ntt_rows_pease(b, pow(w, n1, p), field)  # [k1, br2(k2)]
+    out = _transpose_gather(d, br2).reshape(n)  # X[k1 + n1·k2]
+    if post is not None:
+        out = fp.mont_mul_f(field, out, fp.narrow(_geo_factor_plain(post, 1, n, field, x.device)[0]))
+    return out
+
+
 def ntt_fourstep(
     x: torch.Tensor,
     n: int,
     w: int,
     inverse_scale: int | None = None,
     field: Field = FIELD101,
+    *,
+    pre_offset: int | None = None,
+    post_offset: int | None = None,
 ) -> torch.Tensor:
-    """Size-n transform of a flat Montgomery vector with root w (standard
-    form), natural order in and out. With inverse_scale (Montgomery n^{-1})
-    it is a complete INTT. The route (`pease_enabled`) is read at each call."""
+    """Size-n transform with root w (standard form) of the flat Montgomery
+    vector x of at most n words (the tail up to n taken as zero), natural
+    order in and out. With inverse_scale (Montgomery n^{-1}) it is a complete
+    INTT. Input j is first multiplied by pre_offset^j and output k last by
+    post_offset^k (standard-form residues), where given. The route
+    (`pease_enabled`) is read at each call."""
+    _build.require(x, "ntt_fourstep", 1)
+    if x.shape[0] > n:
+        raise ValueError(f"ntt_fourstep: {x.shape[0]} words do not fit a size-{n} transform")
     p = field.p
+    pre = None if pre_offset is None else GeoScale(pre_offset, n)
+    post = None if post_offset is None else GeoScale(post_offset, n)
     if pease_enabled():
-        n1, n2, ut, vt, br1, br2 = _pease_fourstep_constants(n, w, inverse_scale, field)
-        at = _transpose(x.reshape(n1, n2))  # row j2: x[j1·n2 + j2] over j1
-        at = ntt_rows_pease(at, pow(w, n2, p), field)  # [j2, br1(k1)]
-        tw = _apply_twiddle_t(at, ut, vt, field)  # U.T, V.T columns in br1 order
-        b = _transpose_gather(tw, br1)  # (n1, n2): [k1, j2]
-        d = ntt_rows_pease(b, pow(w, n1, p), field)  # [k1, br2(k2)]
-        return _transpose_gather(d, br2).reshape(n)  # X[k1 + n1·k2]
-    n1, n2, ut, vt = _fourstep_constants(n, w, inverse_scale, field)
-    at = _transpose(x.reshape(n1, n2))  # row j2: x[j1·n2 + j2] over j1
-    at = ntt_rows(at, pow(w, n2, p), field)  # [j2, k1]
-    b = _transpose(_apply_twiddle_t(at, ut, vt, field))  # (n1, n2): [k1, j2]
-    d = ntt_rows(b, pow(w, n1, p), field)  # [k1, k2]
-    return _transpose(d).reshape(n)  # X[k1 + n1·k2]
+        return _fourstep_pease(x, n, w, inverse_scale, field, pre, post)
+    n1, n2, ut, vt = _device_uv(n, w, inverse_scale, field, x.device)
+    if pre is not None:  # element (row j2, column j1) is input j1·n2 + j2
+        pre = GeoScale(pre_offset, n, col_stride=n2, row_stride=1)
+    if post is not None:  # element (row k1, column k2) is output k1 + n1·k2
+        post = GeoScale(post_offset, n, col_stride=n1, row_stride=1)
+    filled = -(-x.shape[0] // n2)  # rows of the (n1, n2) view that hold input
+    at = transpose(x, filled, n2)  # row j2: x[j1·n2 + j2] over j1 < filled
+    at = ntt_rows(at, pow(w, n2, p), field, m=n1, pre=pre, uv=(ut, vt))  # [j2, k1]·ω^{k1·j2}
+    b = transpose(at.reshape(n), n2, n1)  # (n1, n2): [k1, j2]
+    d = ntt_rows(b, pow(w, n1, p), field, post=post)  # [k1, k2]
+    return transpose(d.reshape(n), n1, n2).reshape(n)  # X[k1 + n1·k2]

@@ -216,7 +216,7 @@ class ResumableProver:
     the checkpoint holds host arrays, so it may differ from the device that
     wrote it. Sharding (the JAX `mesh` argument) is not ported yet."""
 
-    def __init__(self, cfg: StarkConfig, secret: int, path: str, fused: bool = False, device="cpu"):
+    def __init__(self, cfg: StarkConfig, secret: int, path: str, fused: bool = False, device="cuda"):
         self.cfg = cfg
         self.secret = secret
         self.path = path

@@ -355,7 +355,7 @@ def decommit(cfg: StarkConfig, channel: Channel, out: dict, queries: list) -> Pr
 def prove(
     cfg: StarkConfig = StarkConfig(),
     secret: int = 3141592,
-    device="cpu",
+    device="cuda",
     artifacts: ProverArtifacts | None = None,
     timings: dict | None = None,
 ) -> Proof:
