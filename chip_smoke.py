@@ -34,7 +34,20 @@ Phases, one output line (or a few) each:
      launches are counted (Pease from the CLI, the others from prove_big);
   8. a 2^16 checkpoint written on the card at the post-device barrier (and
      one at phase2) resumes on the CPU to phase 5's proof;
-  9. the kernel JSON line, then the result line.
+  9. the one-fetch path alone: stark-101 through ``prove(fused=True)`` equals
+     the golden transcript and ``prove(fused=False)``, both verifiers accept,
+     the fused core runs under ``torch.cuda.set_sync_debug_mode("error")``
+     (no call that waits for the device), warm times of both paths, and the
+     device's busy share of one profiled fused prove;
+ 10. batched: ``prove_batch`` of B = 32 and B = 64 stark-101 witnesses, every
+     proof the golden one, proofs per second; ``prove_batch_pipelined`` over
+     4 batches of 32; B = 4 at the 2^16 statement equals phase 5's bytes (the
+     four-step route under a batch);
+ 11. pipelined: ``prove_pipelined`` of 8 stark-101 proofs, and of 3 proofs of
+     the 2^24 statement at depth 2, each equal to phase 6's proof, with the
+     per-proof time beside the solo warm times and the peak memory; this is
+     the main-path run of the one-fetch slice whose launches are counted;
+ 12. the kernel JSON line, the wall time, then the result line.
 
 Every phase that proves checks the launch counters of its own route.
 
@@ -60,6 +73,7 @@ HUGE_TRACE_BITS = 22  # 2^25 evaluation points
 HUGE_PROOF_LEN = 24252  # artifacts/PROVE_2e25_r04.jsonl
 ROW_KERNELS = ("sha256_leaf", "sha256_node", "ntt_rows")  # below the four-step size
 DIT_KERNELS = (*ROW_KERNELS, "transpose")
+FUSED_KERNELS = ("fs_chain", "fri_fold")  # the one-fetch path's own
 
 # The card's published peaks (NVIDIA H100 SXM data sheet) that the bounds are
 # taken against: device memory rate, and integer ops per second as
@@ -83,6 +97,14 @@ FP_MUL, FP_ADD, FP_SUB = 6, 4, 3
 SHA_ROUNDS = 64 * 14 + 8
 SHA_NODE = (SHA_ROUNDS + 48 * 10) + SHA_ROUNDS
 SHA_LEAF = SHA_ROUNDS - 11 + 370
+#  * one compression of a full block: the rounds and 48 schedule steps; a
+#    digest commit of the channel is that and the constant padding block, a
+#    u32 commit or a draw one full block;
+#  * an output of the FRI fold: 1/x_j from its two table words (a product),
+#    (a + b)/2 (an add, a product), β·(a − b)/(2x) (a subtract, two products),
+#    their sum, and the REDC of from_mont (5): 4 products, 2 adds, 1 subtract.
+SHA_BLOCK = SHA_ROUNDS + 48 * 10
+FOLD_OPS = 4 * FP_MUL + 2 * FP_ADD + FP_SUB + 5
 
 SRC = {
     "sha256_leaf": ("zkstark_tpu_torch/csrc/sha256.cu", "zkstark_tpu/ops/sha256_kernel.py:105"),
@@ -90,6 +112,8 @@ SRC = {
     "ntt_rows": ("zkstark_tpu_torch/csrc/ntt.cu", "zkstark_tpu/ops/ntt_kernel.py:78"),
     "transpose": ("zkstark_tpu_torch/csrc/transpose.cu", "zkstark_tpu/ops/ntt_kernel.py:357"),
     "ntt_rows_pease": ("zkstark_tpu_torch/csrc/ntt_pease.cu", "zkstark_tpu/ops/ntt_kernel.py:125"),
+    "fs_chain": ("zkstark_tpu_torch/csrc/fs_chain.cu", "zkstark_tpu/transcript/device_channel.py:63"),
+    "fri_fold": ("zkstark_tpu_torch/csrc/fri_fold.cu", "zkstark_tpu/protocol/prover.py:255"),
 }
 
 
@@ -384,12 +408,95 @@ def phase3_kernels() -> dict:
             rows["transpose"] = r
         del x
     say("phase3 clocks", sm_clocks())
+    rows.update(phase3_chain_and_fold())
     phase3_lde()
     return rows
 
 
+def _all_equal(name: str, label: str, got, want) -> None:
+    """Every tensor of `got` equals its twin in `want` (None where None)."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if (g is None) != (w is None):
+            raise AssertionError(f"{name} {label}: output {i} is missing on one side")
+        if g is not None and g.numel() and max_abs_err(g, w):
+            raise AssertionError(f"{name} {label}: output {i} differs from its plain twin")
+
+
+def phase3_chain_and_fold() -> dict:
+    """`fs_chain` at every entry point and `fri_fold` at every layer size
+    against their plain versions (tolerance 0); the timed rows are the calls
+    the one-fetch path makes (a root and one draw at B = 1; the first fold of
+    the 2^24 statement)."""
+    from zkstark_tpu_torch.field import fp
+    from zkstark_tpu_torch.ops import fri_fold, fs_chain
+
+    rng = np.random.default_rng(34)
+    rows = {}
+
+    def u32(shape):
+        return rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32)
+
+    # no PyTorch call computes a SHA-256 chain or a modular fold: no library time
+    for bsz in (1, 5, 64):
+        state = u32((bsz, 8))
+        state[:, 0] |= 0x80000000  # draws ≥ 2^31
+        state, digest = fp.from_host(state, "cuda"), fp.from_host(u32((bsz, 8)), "cuda")
+        word = fp.from_host(u32(bsz) | np.uint32(0x80000000), "cuda")
+        for fld in (fp.FIELD101, fp.FIELD_ALT):
+            for kw in (dict(digest=digest), dict(word=word), dict(draws=1), dict(draws=3),
+                       dict(draws=4, query_range=8176), dict(digest=digest, draws=3),
+                       dict(digest=digest, word=word, draws=3, query_range=8176)):
+                _all_equal("fs_chain", f"B={bsz} p={fld.p} {sorted(kw)}",
+                           fs_chain.chain_step(state, field=fld, **kw),
+                           fs_chain.chain_step_plain(state, field=fld, **kw))
+        _all_equal("fs_chain", f"B={bsz} absorb_hash", [fs_chain.absorb_hash(state, digest)],
+                   [fs_chain.chain_step_plain(state, digest=digest)[0]])
+        _all_equal("fs_chain", f"B={bsz} absorb_u32_le", [fs_chain.absorb_u32_le(state, word)],
+                   [fs_chain.chain_step_plain(state, word=word)[0]])
+        _all_equal("fs_chain", f"B={bsz} draw", fs_chain.draw(state, 2),
+                   fs_chain.chain_step_plain(state, draws=2))
+        # one boundary of the prove path: a root (two compressions), one draw
+        r = _compare(
+            "fs_chain", f"B={bsz} digest+1 draw",
+            lambda: fs_chain.chain_step(state, digest=digest, draws=1)[0],
+            lambda: fs_chain.chain_step_plain(state, digest=digest, draws=1)[0],
+            bound(bsz * 4 * (8 + 8 + 8 + 2), bsz * (2 * SHA_BLOCK + SHA_ROUNDS + FP_MUL)),
+        )
+        if bsz == 1:
+            rows["fs_chain"] = r
+
+    for fld in (fp.FIELD101, fp.FIELD_ALT):
+        p = fld.p
+        for bsz in (1, 3):
+            for log_m in range(1, 25):
+                if log_m > 16 and (log_m % 4 or fld is fp.FIELD_ALT and log_m < 24):
+                    continue
+                m = 1 << log_m
+                vals = rng.integers(0, p, (bsz, m), dtype=np.uint64).astype(np.uint32)
+                vals[0, : min(m, 3)] = np.array([0, 1, p - 1], dtype=np.uint32)[: min(m, 3)]
+                vals[-1, m // 2 :] = p - 1
+                evals = fp.from_host(vals, "cuda")
+                beta = fp.from_host(rng.integers(0, p, bsz, dtype=np.uint64).astype(np.uint32), "cuda")
+                base = fld.subgroup_generator(m)
+                args = (beta, pow(base, p - 2, p), pow(5, p - 2, p), fld)
+                label = f"B={bsz} m=2^{log_m} p={p}"
+                _all_equal("fri_fold", label, fri_fold.fri_fold(evals, *args),
+                           fri_fold.fri_fold_plain(evals, *args))
+                if (bsz, log_m) == (1, 24) and fld is fp.FIELD101:
+                    # both outputs are checked above; the timed calls return one
+                    rows["fri_fold"] = _compare(
+                        "fri_fold", label,
+                        lambda: fri_fold.fri_fold(evals, *args)[1],
+                        lambda: fri_fold.fri_fold_plain(evals, *args)[1],
+                        bound(bsz * (4 * m + 2 * 2 * m), bsz * (m // 2) * FOLD_OPS),
+                    )
+                del evals
+        say(f"phase3 fri_fold p={p} B in (1, 3) m=2..2^24 equal to the plain version, tol=0")
+    return rows
+
+
 OWN_KERNELS = ("ntt_rows_kernel", "transpose_kernel", "ntt_rows_pease_kernel", "sha256_leaf",
-               "sha256_node")
+               "sha256_node", "fs_chain_kernel", "fri_fold_kernel")
 
 
 def phase3_lde() -> None:
@@ -443,7 +550,7 @@ def phase4_stark101():
 
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    proof = prove(STARK101, STARK101_SECRET, device="cuda")
+    proof = prove(STARK101, STARK101_SECRET, device="cuda", fused=False)
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     counts = ops.launch_counts()
@@ -451,19 +558,19 @@ def phase4_stark101():
         raise AssertionError(f"stark-101 not golden: {len(proof.data)} B, {proof.state.hex()}")
     verify(proof, STARK101)
     verify_native(proof, STARK101)
-    require_launched(counts, ROW_KERNELS, "stark-101")
+    require_launched(counts, (*ROW_KERNELS, "fri_fold"), "stark-101")
     warm = []
     for _ in range(5):
         t0 = time.perf_counter()
-        again = prove(STARK101, STARK101_SECRET, device="cuda")
+        again = prove(STARK101, STARK101_SECRET, device="cuda", fused=False)
         torch.cuda.synchronize()
         warm.append(time.perf_counter() - t0)
         if again != proof:
             raise AssertionError("stark-101 proof changed between runs")
     timings = {}
-    prove(STARK101, STARK101_SECRET, device="cuda", timings=timings)
+    prove(STARK101, STARK101_SECRET, device="cuda", timings=timings, fused=False)
     say(
-        f"phase4 stark101 golden bytes={len(proof.data)} state={proof.state.hex()[:8]} "
+        f"phase4 stark101 host-synced golden bytes={len(proof.data)} state={proof.state.hex()[:8]} "
         f"verify=ok native=ok launches={json.dumps(counts)} cold_s={cold:.4f} "
         f"warm_s_min={min(warm):.4f} warm_s_median={sorted(warm)[2]:.4f} "
         f"phases={json.dumps({k: round(v, 5) for k, v in timings.items()})}"
@@ -509,7 +616,7 @@ def phase6_big():
     timings = {}
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    proof = prove(cfg, BIG_SECRET, device="cuda", timings=timings)
+    proof = prove(cfg, BIG_SECRET, device="cuda", timings=timings, fused=False)
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     counts = ops.launch_counts()
@@ -520,16 +627,16 @@ def phase6_big():
     verify(proof, cfg)
     verify_s = time.perf_counter() - t0
     verify_native(proof, cfg)
-    require_launched(counts, DIT_KERNELS, "2^24")
+    require_launched(counts, (*DIT_KERNELS, "fri_fold"), "2^24")
     warm_timings = {}
     t0 = time.perf_counter()
-    again = prove(cfg, BIG_SECRET, device="cuda", timings=warm_timings)
+    again = prove(cfg, BIG_SECRET, device="cuda", timings=warm_timings, fused=False)
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     if again != proof:
         raise AssertionError("2^24 proof changed between runs")
     say(
-        f"phase6 square-chain trace_len={cfg.trace_len} eval_domain={cfg.eval_domain} "
+        f"phase6 square-chain host-synced trace_len={cfg.trace_len} eval_domain={cfg.eval_domain} "
         f"fri_rounds={cfg.fri_rounds} bytes={len(proof.data)} state={proof.state.hex()} "
         f"verify=ok verify_s={verify_s:.4f} native=ok witness_s={witness:.3f} "
         f"cold_s={cold:.3f} warm_s={warm:.3f} max_memory_allocated={peak} "
@@ -537,6 +644,7 @@ def phase6_big():
     )
     say(f"phase6 cold_phases={json.dumps({k: round(v, 4) for k, v in timings.items()})}")
     say(f"phase6 warm_phases={json.dumps({k: round(v, 4) for k, v in warm_timings.items()})}")
+    return cfg, proof, warm
 
 
 def _cli(args: list, env: dict) -> dict:
@@ -569,7 +677,8 @@ def phase7_entry_points(tmp_dir: str) -> dict:
     cli = _cli(statement + ["prove", "--secret", str(BIG_SECRET), "--out", out], env)
     cli_s = time.perf_counter() - t0
     pease_counts = cli["kernel_launches"]
-    require_launched(pease_counts, ("sha256_leaf", "sha256_node", "ntt_rows_pease"), "CLI 2^25")
+    require_launched(pease_counts, ("sha256_leaf", "sha256_node", "ntt_rows_pease", *FUSED_KERNELS),
+                     "CLI 2^25")
     boundary = str(cli["boundary_last"])
     checked = _cli(statement + ["--boundary-last", boundary, "verify", out], env)
     if not checked.get("verified"):
@@ -598,7 +707,7 @@ def phase7_entry_points(tmp_dir: str) -> dict:
         raise AssertionError(f"2^25 proof has {len(proof.data)} bytes, want {HUGE_PROOF_LEN}")
     if proof.to_bytes() != cli_bytes:
         raise AssertionError("2^25: the DIT-route proof differs from the Pease-route CLI proof")
-    require_launched(dit_counts, DIT_KERNELS, "prove_big 2^25")
+    require_launched(dit_counts, (*DIT_KERNELS, "fri_fold"), "prove_big 2^25")
     if dit_counts["ntt_rows_pease"]:
         raise AssertionError(f"the DIT route launched the Pease kernel: {dit_counts}")
     say(
@@ -612,7 +721,7 @@ def phase7_entry_points(tmp_dir: str) -> dict:
         os.environ["ZKSTARK_PEASE"] = route
         warm = {}
         t0 = time.perf_counter()
-        again = prove(cfg, BIG_SECRET, device="cuda", timings=warm)
+        again = prove(cfg, BIG_SECRET, device="cuda", timings=warm, fused=False)
         warm_s = time.perf_counter() - t0
         if again != proof:
             raise AssertionError(f"2^25 proof with ZKSTARK_PEASE={route} differs")
@@ -647,7 +756,179 @@ def phase8_checkpoint(tmp_dir: str, cfg, want) -> None:
         )
 
 
+def _guarded_core(cfg, secret: int):
+    """One fused prove whose core (from the uploaded trace to the start of
+    the one fetch) runs under the sync debug mode "error": any call that
+    waits for the device raises. The caches must be warm."""
+    from zkstark_tpu_torch.protocol import fused
+    from zkstark_tpu_torch.protocol import prover as pr
+
+    trace = pr.trace_to_device(cfg, secret, torch.device("cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = fused.PendingFetch(fused.fused_core_packed(cfg, trace))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return pr.finish_fused(cfg, fused.unpack_out(cfg, pending.wait()))
+
+
+def _device_busy(fn) -> dict:
+    """One call of `fn` under torch.profiler: wall seconds, the device's busy
+    seconds (the sum of its kernels and copies) and their count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = [e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not spans:
+        raise AssertionError("torch.profiler recorded no device activity")
+    busy = sum(spans) / 1e6
+    return dict(wall_s=round(wall, 5), device_busy_s=round(busy, 5), device_spans=len(spans),
+                idle_share=round(1 - busy / wall, 4))
+
+
+def _warm_min(fn, want, repeats: int, what: str) -> float:
+    """The least wall seconds of `repeats` calls of `fn`, each of which must
+    return `want`."""
+    best = float("inf")
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+        if got != want:
+            raise AssertionError(f"{what}: the proof changed between runs")
+    return best
+
+
+def phase9_fused_solo():
+    from zkstark_tpu_torch import STARK101, STARK101_SECRET, ops, prove, verify
+    from zkstark_tpu_torch.native import verify_native
+
+    legacy = prove(STARK101, STARK101_SECRET, device="cuda", fused=False)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    proof = prove(STARK101, STARK101_SECRET, device="cuda")
+    cold = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if len(proof.data) != GOLDEN_LEN or proof.state.hex() != GOLDEN_STATE or proof != legacy:
+        raise AssertionError(f"fused stark-101 not golden: {len(proof.data)} B, {proof.state.hex()}")
+    verify(proof, STARK101)
+    verify_native(proof, STARK101)
+    require_launched(counts, (*ROW_KERNELS, *FUSED_KERNELS), "fused stark-101")
+    if _guarded_core(STARK101, STARK101_SECRET) != proof:
+        raise AssertionError("fused stark-101 under the sync debug mode differs")
+    fused_s = _warm_min(lambda: prove(STARK101, STARK101_SECRET, device="cuda"), proof, 5, "fused")
+    legacy_s = _warm_min(lambda: prove(STARK101, STARK101_SECRET, device="cuda", fused=False),
+                         proof, 5, "host-synced")
+    timings = {}
+    prove(STARK101, STARK101_SECRET, device="cuda", timings=timings)
+    busy = _device_busy(lambda: prove(STARK101, STARK101_SECRET, device="cuda"))
+    say(
+        f"phase9 stark101 fused golden bytes={len(proof.data)} fused==host_synced verify=ok "
+        f"native=ok sync_debug_mode=error:ok launches={json.dumps(counts)} first_s={cold:.4f} "
+        f"warm_ms_min_fused={fused_s * 1e3:.3f} warm_ms_min_host_synced={legacy_s * 1e3:.3f} "
+        f"spans={json.dumps({k: round(v, 5) for k, v in timings.items()})} "
+        f"profiled={json.dumps(busy)}"
+    )
+
+
+def phase10_batch(cfg16, proof16):
+    from zkstark_tpu_torch import STARK101, STARK101_SECRET, ops, prove
+    from zkstark_tpu_torch.protocol.batch import prove_batch, prove_batch_pipelined
+
+    golden = prove(STARK101, STARK101_SECRET, device="cuda")
+    for bsz in (32, 64):
+        secrets = [STARK101_SECRET] * bsz
+        ops.reset_launch_counts()
+        proofs = prove_batch(STARK101, secrets, device="cuda")
+        counts = ops.launch_counts()
+        if len(proofs) != bsz or any(p != golden for p in proofs):
+            raise AssertionError(f"prove_batch B={bsz}: a proof is not the golden one")
+        require_launched(counts, (*ROW_KERNELS, *FUSED_KERNELS), f"prove_batch B={bsz}")
+        best = _warm_min(lambda: prove_batch(STARK101, secrets, device="cuda"), proofs, 3,
+                         f"prove_batch B={bsz}")
+        say(f"phase10 prove_batch stark101 B={bsz} all golden batch_s_min={best:.4f} "
+            f"proofs_per_s={bsz / best:.1f} launches={json.dumps(counts)}")
+    batches = [[STARK101_SECRET] * 32] * 4
+    proofs = prove_batch_pipelined(STARK101, batches, depth=2, device="cuda")
+    if len(proofs) != 128 or any(p != golden for p in proofs):
+        raise AssertionError("prove_batch_pipelined: a proof is not the golden one")
+    best = _warm_min(lambda: prove_batch_pipelined(STARK101, batches, depth=2, device="cuda"),
+                     proofs, 3, "prove_batch_pipelined")
+    say(f"phase10 prove_batch_pipelined stark101 4x32 depth=2 all golden stream_s_min={best:.4f} "
+        f"proofs_per_s={128 / best:.1f}")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    four = prove_batch(cfg16, [BIG_SECRET] * 4, device="cuda")
+    took = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if any(p != proof16 for p in four):
+        raise AssertionError("prove_batch B=4 at 2^16 differs from phase 5")
+    require_launched(counts, (*DIT_KERNELS, *FUSED_KERNELS), "prove_batch 2^16")
+    say(f"phase10 prove_batch square-chain 2^16 B=4 ==phase5 batch_s={took:.4f} "
+        f"launches={json.dumps(counts)}")
+
+
+def phase11_pipelined(cfg24, proof24, host_synced_warm_s: float) -> dict:
+    """`prove_pipelined` at stark-101 and at the 2^24 statement; returns the
+    launch counts of the 2^24 stream, the one-fetch slice's main-path run."""
+    from zkstark_tpu_torch import STARK101, STARK101_SECRET, ops, prove, verify
+    from zkstark_tpu_torch.native import verify_native
+    from zkstark_tpu_torch.protocol import prove_pipelined
+
+    golden = prove(STARK101, STARK101_SECRET, device="cuda")
+    eight = [golden] * 8
+    if prove_pipelined(STARK101, [STARK101_SECRET] * 8, depth=2, device="cuda") != eight:
+        raise AssertionError("prove_pipelined: a stark-101 proof is not the golden one")
+    best = _warm_min(lambda: prove_pipelined(STARK101, [STARK101_SECRET] * 8, depth=2, device="cuda"),
+                     eight, 3, "prove_pipelined stark-101")
+    say(f"phase11 prove_pipelined stark101 n=8 depth=2 all golden per_proof_ms={best / 8 * 1e3:.3f}")
+
+    first = prove(cfg24, BIG_SECRET, device="cuda")  # fills the device caches
+    if first != proof24:
+        raise AssertionError("2^24: the fused proof differs from the host-synced one")
+    if _guarded_core(cfg24, BIG_SECRET) != proof24:
+        raise AssertionError("2^24: the fused proof under the sync debug mode differs")
+    spans = {}
+    prove(cfg24, BIG_SECRET, device="cuda", timings=spans)
+    solo = _warm_min(lambda: prove(cfg24, BIG_SECRET, device="cuda"), proof24, 2, "fused 2^24")
+    busy = _device_busy(lambda: prove(cfg24, BIG_SECRET, device="cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    proofs = prove_pipelined(cfg24, [BIG_SECRET] * 3, depth=2, device="cuda")
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for p in proofs:
+        if len(p.data) != BIG_PROOF_LEN or p != proof24:
+            raise AssertionError("prove_pipelined 2^24: a proof differs from phase 6's")
+    verify(proofs[-1], cfg24)
+    verify_native(proofs[-1], cfg24)
+    require_launched(counts, (*DIT_KERNELS, *FUSED_KERNELS), "prove_pipelined 2^24")
+    say(
+        f"phase11 prove_pipelined square-chain 2^24 n=3 depth=2 bytes={len(proofs[0].data)} "
+        f"==phase6 verify=ok native=ok sync_debug_mode=error:ok per_proof_s={stream_s / 3:.4f} "
+        f"stream_s={stream_s:.4f} solo_fused_warm_s={solo:.4f} "
+        f"solo_host_synced_warm_s={host_synced_warm_s:.4f} max_memory_allocated={peak} "
+        f"launches={json.dumps(counts)}"
+    )
+    say(f"phase11 2^24 fused spans={json.dumps({k: round(v, 4) for k, v in spans.items()})} "
+        f"profiled={json.dumps(busy)}")
+    return counts
+
+
 def main():
+    t_start = time.perf_counter()
     smi = phase0_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     # phases 4-6 and prove_big take the default DIT route; phase 7 turns the
@@ -658,10 +939,17 @@ def main():
     rows = phase3_kernels()
     phase4_stark101()
     cfg16, proof16 = phase5_cross_check()
-    phase6_big()
+    cfg24, proof24, warm24 = phase6_big()
     with tempfile.TemporaryDirectory() as tmp_dir:
         launches = phase7_entry_points(tmp_dir)
         phase8_checkpoint(tmp_dir, cfg16, proof16)
+    phase9_fused_solo()
+    phase10_batch(cfg16, proof16)
+    fused_launches = phase11_pipelined(cfg24, proof24, warm24)
+    # the launches of a kernel are those of the main-path run that first drove
+    # it: the 2^25 entry points (phase 7), the 2^24 pipelined stream (phase 11)
+    for name in FUSED_KERNELS:
+        launches[name] = fused_launches[name]
     kernels = [
         {
             "name": name,
@@ -675,9 +963,13 @@ def main():
             "bound_ms": rows[name]["bound_ms"],
             "bound_by": rows[name]["bound_by"],
             "library_ms": rows[name]["library_ms"],
+            "launches_one_fetch_2e24_stream": fused_launches[name],
         }
         for name in SRC
     ]
+    if any(k["launches"] <= 0 for k in kernels):
+        raise AssertionError(f"a kernel was never launched on a main path: {kernels}")
+    say(f"wall_s={time.perf_counter() - t_start:.1f}")
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(

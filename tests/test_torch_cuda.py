@@ -9,7 +9,10 @@ Shapes the prove path does not reach are covered here: ragged hash counts,
 every row length 2..8192 for both row kernels (DIT and Pease) at ragged batch
 sizes, each fused option of `ntt_rows` alone and all together, ragged
 transposes with a missing tail, the second prime, both four-step routes, the
-LDE entry points against the CPU, and the wrappers' input checks.
+LDE entry points against the CPU, the Fiat-Shamir chain kernel at every entry
+point and ragged chain counts, the FRI fold at every layer size from 2 words
+up and ragged proof counts, the fused, batched and pipelined provers against
+the host-synced one, and the wrappers' input checks.
 """
 
 import numpy as np
@@ -18,7 +21,7 @@ import torch
 
 from zkstark_tpu_torch.field import fp
 from zkstark_tpu_torch.ntt import core as ntt_core
-from zkstark_tpu_torch.ops import ntt_kernel, sha256_kernel
+from zkstark_tpu_torch.ops import fri_fold, fs_chain, ntt_kernel, sha256_kernel
 
 pytestmark = pytest.mark.cuda
 
@@ -136,6 +139,177 @@ def test_ntt_rows_pease_every_length(dev, field, log_m):
     _eq(ntt_kernel.ntt_rows_pease(x, w, field), ntt_kernel.ntt_rows_pease_plain(x, tw, field))
 
 
+@pytest.mark.parametrize("batch", [1, 2, 257])
+@pytest.mark.parametrize("log_m", [1, 2, 3, 4, 5, 8, 11, 12, 13])
+def test_ntt_rows_pease_ragged_batches(dev, log_m, batch):
+    field, m = fp.FIELD101, 1 << log_m
+    x = _rand_mont(field, (batch, m), 200 + log_m, dev)
+    w = ntt_core.forward_plan(m, field).root
+    tw = ntt_kernel.pease_twiddles(m, w, field)
+    _eq(ntt_kernel.ntt_rows_pease(x, w, field), ntt_kernel.ntt_rows_pease_plain(x, tw, field))
+
+
+def test_ntt_rows_pease_edge_values(dev):
+    """Rows of 0, 1 and p − 1 (standard and Montgomery) through every stage."""
+    field, m = fp.FIELD101, 4096
+    p = field.p
+    rows = np.stack([np.full(m, v, dtype=np.uint32) for v in (0, 1, p - 1, field.r_mod_p)]
+                    + [np.where(np.arange(m) % 2 == 0, p - 1, 0).astype(np.uint32)])
+    x = fp.from_host(rows, dev)
+    w = ntt_core.forward_plan(m, field).root
+    tw = ntt_kernel.pease_twiddles(m, w, field)
+    _eq(ntt_kernel.ntt_rows_pease(x, w, field), ntt_kernel.ntt_rows_pease_plain(x, tw, field))
+
+
+def _chain_inputs(lead, seed, dev):
+    state = _u32(lead + (8,), seed)
+    state[..., 0] |= 0x80000000  # the first draw of every chain is ≥ 2^31
+    word = np.atleast_1d(_u32(lead, seed + 2) | np.uint32(0x80000000))
+    return (fp.from_host(state, dev), fp.from_host(_u32(lead + (8,), seed + 1), dev),
+            fp.from_host(word, dev).reshape(lead))
+
+
+@FIELDS
+@pytest.mark.parametrize("lead", [(), (1,), (5,), (64,), (257,), (3, 5)], ids=str)
+def test_fs_chain_every_entry_point(dev, field, lead):
+    state, digest, word = _chain_inputs(lead, 11 + len(lead), dev)
+    cases = [
+        dict(digest=digest),
+        dict(word=word),
+        dict(draws=1),
+        dict(draws=4, query_range=8176),
+        dict(digest=digest, draws=3),
+        dict(digest=digest, word=word, draws=3, query_range=(1 << 32) - 1),
+        dict(),
+    ]
+    for kw in cases:
+        before = fs_chain.chain_launches
+        got = fs_chain.chain_step(state, field=field, **kw)
+        assert fs_chain.chain_launches == before + 1
+        want = fs_chain.chain_step_plain(state, field=field, **kw)
+        for g, w_ in zip(got, want):
+            assert (g is None) == (w_ is None)
+            if g is not None:
+                assert g.shape == w_.shape
+                _eq(g, w_)
+    _eq(fs_chain.absorb_hash(state, digest), fs_chain.chain_step_plain(state, digest=digest)[0])
+    _eq(fs_chain.absorb_u32_le(state, word), fs_chain.chain_step_plain(state, word=word)[0])
+    for g, w_ in zip(fs_chain.draw(state, 2, field)[:3], fs_chain.chain_step_plain(state, draws=2, field=field)[:3]):
+        _eq(g, w_)
+
+
+def test_fs_chain_strided_digest(dev):
+    """The roots of a batch of trees are rows of a (B, 1, 8) level."""
+    state, _, _ = _chain_inputs((5,), 3, dev)
+    level = fp.from_host(_u32((5, 4, 8), 9), dev)
+    digest = level[:, 2]
+    got = fs_chain.chain_step(state, digest=digest, draws=1)
+    want = fs_chain.chain_step_plain(state.cpu(), digest=digest.cpu(), draws=1)
+    for g, w_ in zip(got[:3], want[:3]):
+        _eq(g, w_)
+
+
+@FIELDS
+@pytest.mark.parametrize("batch", [1, 3, 64])
+@pytest.mark.parametrize("log_m", [1, 2, 3, 4, 5, 9, 13, 16, 20])
+def test_fri_fold_every_size(dev, field, log_m, batch):
+    if batch == 64 and log_m > 13:
+        pytest.skip("the batched prover folds small layers only")
+    m = 1 << log_m
+    p = field.p
+    rng = np.random.default_rng(log_m * 7 + batch)
+    vals = rng.integers(0, p, (batch, m), dtype=np.uint64).astype(np.uint32)
+    vals[0, : min(m, 3)] = np.array([0, 1, p - 1], dtype=np.uint32)[: min(m, 3)]
+    vals[-1, m // 2 :] = p - 1
+    evals = fp.from_host(vals, dev)
+    beta = fp.from_host(rng.integers(0, p, batch, dtype=np.uint64).astype(np.uint32), dev)
+    base = field.subgroup_generator(m)
+    inv_base, inv_off = pow(base, p - 2, p), pow(5, p - 2, p)
+    before = fri_fold.fold_launches
+    got = fri_fold.fri_fold(evals, beta, inv_base, inv_off, field)
+    assert fri_fold.fold_launches == before + 1
+    want = fri_fold.fri_fold_plain(evals, beta, inv_base, inv_off, field)
+    for g, w_ in zip(got, want):
+        assert g.shape == (batch, m // 2)
+        _eq(g, w_)
+    scalar = int(rng.integers(0, p))
+    one = fp.as_u32(fp.as_i32(evals)[0].contiguous())
+    for g, w_ in zip(fri_fold.fri_fold(one, scalar, inv_base, inv_off, field),
+                     fri_fold.fri_fold_plain(one, scalar, inv_base, inv_off, field)):
+        assert g.shape == (m // 2,)
+        _eq(g, w_)
+
+
+def test_fri_fold_unaligned_view(dev):
+    """Rows that do not start on 16 bytes take the 4-byte accesses."""
+    field, m = fp.FIELD101, 64
+    x = _rand_mont(field, m + 1, 5, dev)[1:]
+    base = field.subgroup_generator(m)
+    args = (12345, pow(base, field.p - 2, field.p), 1, field)
+    x = fp.as_u32(fp.as_i32(x))
+    assert x.data_ptr() % 16
+    for g, w_ in zip(fri_fold.fri_fold(x, *args), fri_fold.fri_fold_plain(x, *args)):
+        _eq(g, w_)
+
+
+def _small_cfg(trace_len=63, air_name="fibonacci-sq", secret=3141592, n_queries=1):
+    from zkstark_tpu_torch.protocol.air import AIRS
+    from zkstark_tpu_torch.protocol.config import StarkConfig
+
+    air = AIRS[air_name]
+    trace = air.trace(trace_len, secret)
+    return StarkConfig(trace_len=trace_len, boundary_last=int(trace[-1]), air=air,
+                       n_queries=n_queries)
+
+
+@pytest.mark.parametrize("trace_len,n_queries", [(63, 1), (63, 3), (2047, 2)])
+def test_fused_prove_on_card_equals_host_synced(dev, trace_len, n_queries):
+    """The one-fetch path on the card gives the bytes of the host-synced path
+    there and on the CPU; its core makes no call that waits once warm."""
+    from zkstark_tpu_torch.protocol import fused, prove, verify
+    from zkstark_tpu_torch.protocol import prover as pr
+
+    cfg = _small_cfg(trace_len, n_queries=n_queries)
+    want = prove(cfg, device="cpu", fused=False)
+    assert prove(cfg, device=dev, fused=False) == want
+    before = fs_chain.chain_launches, fri_fold.fold_launches
+    assert prove(cfg, device=dev) == want
+    assert fs_chain.chain_launches == before[0] + 2 + cfg.fri_rounds
+    assert fri_fold.fold_launches == before[1] + cfg.fri_rounds
+    verify(want, cfg)
+    trace = pr.trace_to_device(cfg, 3141592, torch.device(dev))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = fused.PendingFetch(fused.fused_core_packed(cfg, trace))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert pr.finish_fused(cfg, fused.unpack_out(cfg, pending.wait())) == want
+
+
+def test_batch_and_pipelined_on_card(dev):
+    from zkstark_tpu_torch.protocol import prove, prove_pipelined
+    from zkstark_tpu_torch.protocol.batch import prove_batch, prove_batch_pipelined
+
+    cfg = _small_cfg(255, "square-chain", secret=271828)
+    want = prove(cfg, 271828, device="cpu", fused=False)
+    assert prove_batch(cfg, [271828] * 5, device=dev) == [want] * 5
+    assert prove_pipelined(cfg, [271828] * 4, depth=2, device=dev) == [want] * 4
+    assert prove_batch_pipelined(cfg, [[271828] * 3] * 3, depth=1, device=dev) == [want] * 9
+    with pytest.raises(ValueError):
+        prove_batch(cfg, [271828, 5], device=dev)
+
+
+def test_batched_fourstep_on_card(dev):
+    """A batch at a four-step domain (2^14 points) loops over the proofs."""
+    from zkstark_tpu_torch.protocol import prove
+    from zkstark_tpu_torch.protocol.batch import prove_batch
+
+    cfg = _small_cfg(2047, "square-chain", secret=271828)
+    want = prove(cfg, 271828, device=dev, fused=False)
+    assert prove_batch(cfg, [271828] * 2, device=dev) == [want] * 2
+
+
 @pytest.mark.parametrize("pease", ["off", "on"])
 def test_fourstep_on_card_equals_cpu(dev, monkeypatch, pease):
     monkeypatch.setenv("ZKSTARK_PEASE", pease)
@@ -197,3 +371,16 @@ def test_wrappers_reject_bad_input(dev):
         ntt_kernel.ntt_rows_pease(fp.from_host(_u32((4, 8), 2), dev).t(), 1)
     with pytest.raises(ValueError):
         ntt_kernel.ntt_rows_pease(fp.from_host(_u32((1, 16384), 3), dev), 1)
+    state = fp.from_host(_u32((4, 8), 1), dev)
+    with pytest.raises(ValueError):
+        fs_chain.chain_step(state, digest=fp.from_host(_u32((3, 8), 1), dev))
+    with pytest.raises(ValueError):
+        fs_chain.chain_step(state, word=fp.from_host(_u32(4, 1), "cpu"))
+    with pytest.raises(ValueError):
+        fs_chain.chain_step(state, draws=1, query_range=0)
+    with pytest.raises(ValueError):
+        fs_chain.chain_step(fp.from_host(_u32((4, 7), 1), dev))
+    with pytest.raises(ValueError):
+        fri_fold.fri_fold(fp.from_host(_u32((2, 12), 1), dev), 1, 1, 1)
+    with pytest.raises(ValueError):
+        fri_fold.fri_fold(fp.from_host(_u32((2, 16), 1), dev), fp.from_host(_u32(3, 1), dev), 1, 1)

@@ -42,4 +42,7 @@ def test_package_is_covered():
     assert "zkstark_tpu_torch/__main__.py" in names
     assert "zkstark_tpu_torch/protocol/checkpoint.py" in names
     assert "zkstark_tpu_torch/tools/prove_big.py" in names
-    assert len(names) >= 24
+    for new in ("transcript/device_channel.py", "ops/fs_chain.py", "ops/fri_fold.py",
+                "protocol/fused.py", "protocol/batch.py"):
+        assert f"zkstark_tpu_torch/{new}" in names
+    assert len(names) >= 29

@@ -37,7 +37,10 @@ TRANSCRIPT_LEN = 7836
 def golden():
     art = ProverArtifacts()
     timings = {}
-    proof = prove(STARK101, STARK101_SECRET, device="cpu", artifacts=art, timings=timings)
+    # the host-synced path: it alone keeps the trees and has per-phase spans
+    proof = prove(
+        STARK101, STARK101_SECRET, device="cpu", artifacts=art, timings=timings, fused=False
+    )
     return proof, art, timings
 
 

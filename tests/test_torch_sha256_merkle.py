@@ -3,7 +3,7 @@
 Leaf and node digests on 4,096 seeded random inputs and at odd sizes (the
 CUDA kernels take any N; the plain twins run here), tree levels at 2^13
 leaves, the reference's four-leaf digests (merkle.rs:117-181), auth paths,
-and the constant tables that csrc/sha256.cu carries.
+and the constant tables that csrc/sha256.cuh carries.
 """
 
 import hashlib
@@ -119,7 +119,7 @@ def test_auth_paths_roundtrip_and_match_jax():
 
 
 def _cu_table(name):
-    src = (Path(tmerkle.__file__).parents[1] / "csrc" / "sha256.cu").read_text()
+    src = (Path(tmerkle.__file__).parents[1] / "csrc" / "sha256.cuh").read_text()
     body = re.search(name + r"\[64\] = \{(.*?)\};", src, re.S).group(1)
     return [int(v, 16) for v in re.findall(r"0x([0-9A-Fa-f]{8})u", body)]
 

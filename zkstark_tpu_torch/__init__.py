@@ -3,9 +3,10 @@ PyTorch with hand-written CUDA kernels for an NVIDIA H100.
 
 Same protocol, same bytes: for the same configuration and witness, `prove`
 returns the proof the JAX package returns, and each verifier accepts the
-other's proofs. The SHA-256 leaf/node hashing and the NTT row transforms run
-as CUDA C++ kernels on a CUDA device (`ops/`, sources in `csrc/`), and as
-plain-torch twins on the CPU. This package imports neither JAX nor
+other's proofs. The SHA-256 leaf/node hashing, the NTT row transforms and
+transposes, the Fiat-Shamir hash chain and the FRI fold run as CUDA C++
+kernels on a CUDA device (`ops/`, sources in `csrc/`), and as plain-torch
+twins on the CPU. This package imports neither JAX nor
 `zkstark_tpu`.
 """
 

@@ -18,10 +18,10 @@
 // fit a word, so every add and subtract reduces to [0, p) at once.
 //
 // fp_mul_r and fp_add_r are the forms for operands known to be reduced
-// (a, b < p), as every word inside the NTT row kernel is: they stay in 32
-// bits and take about half the machine ops. On reduced operands they return
-// the same words as fp_mul and fp_add (the one residue in [0, p)); on others
-// they are not defined.
+// (a, b < p), as every word inside the NTT row kernels and the FRI fold is:
+// they stay in 32 bits and take about half the machine ops (fp_sub never
+// needed more). On reduced operands they return the same words as fp_mul and
+// fp_add (the one residue in [0, p)); on others they are not defined.
 #pragma once
 
 #include <cstdint>
@@ -70,4 +70,10 @@ __device__ __forceinline__ uint32_t fp_add_r(uint32_t a, uint32_t b, Fp f) {
   const uint32_t nb = f.p - b;
   const uint32_t d = a - nb;
   return a < nb ? d + f.p : d;
+}
+
+// Montgomery form -> standard residue (the reference's residue()): REDC of the
+// word itself.
+__device__ __forceinline__ uint32_t fp_from_mont(uint32_t a, Fp f) {
+  return fp_reduce(static_cast<uint64_t>(a), f);
 }

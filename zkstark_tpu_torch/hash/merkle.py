@@ -1,7 +1,8 @@
 """Merkle commitment over uint32 residues, built level by level on the
 device — counterpart of ``zkstark_tpu/hash/merkle.py``.
 
-Every level is row-major (k, 8) in natural order: adjacent digest rows are
+Every level is row-major (k, 8), or (B, k, 8) for B trees built in lockstep
+(`build_levels_batch`), in natural order: adjacent digest rows are
 exactly a node's left‖right message, so each level is one
 `sha256_kernel.node_hash_pairs` call on the level below. Leaf encoding
 (big-endian u32, merkle.rs:30-34), node order (left‖right, merkle.rs:42-45),
@@ -21,17 +22,27 @@ from zkstark_tpu_torch.hash import sha256
 from zkstark_tpu_torch.ops import sha256_kernel
 
 
+def build_levels_batch(values: torch.Tensor) -> list:
+    """B trees in lockstep from (B, n) uint32 residues, n a power of two:
+    [leaves (B, n, 8), …, roots (B, 1, 8)]. Each level is one kernel call on
+    the flat (B·k) hash axis: n is even, so children 2j and 2j+1 of any parent
+    lie in one tree and pairs never cross trees."""
+    bsz, n = values.shape
+    assert n >= 1 and n & (n - 1) == 0
+    flat = fp.as_u32(fp.as_i32(values).reshape(bsz * n))
+    level = sha256_kernel.leaf_hash(flat)
+    levels = [level.reshape(bsz, n, 8)]
+    while n > 1:
+        n //= 2
+        level = sha256_kernel.node_hash_pairs(level)
+        levels.append(level.reshape(bsz, n, 8))
+    return levels
+
+
 def build_levels(values: torch.Tensor) -> list:
     """All tree levels bottom-up from (n,) uint32 residues, n a power of two:
     [leaves (n, 8), …, root (1, 8)], on the values' device."""
-    n = values.shape[0]
-    assert n >= 1 and n & (n - 1) == 0
-    level = sha256_kernel.leaf_hash(values)
-    levels = [level]
-    while level.shape[0] > 1:
-        level = sha256_kernel.node_hash_pairs(level)
-        levels.append(level)
-    return levels
+    return [level[0] for level in build_levels_batch(values[None])]
 
 
 @dataclass

@@ -6,7 +6,8 @@ only on the size n, never on the device:
   * n < `ops.ntt_kernel.MIN_FOURSTEP` (2^14): one `ntt_rows` call, batch =
     the product of the leading axes;
   * larger n: the four-step factorization (`ops.ntt_kernel.ntt_fourstep`),
-    whose two passes of row transforms are `ntt_rows` calls as well.
+    whose two passes of row transforms are `ntt_rows` calls as well; leading
+    axes are then transformed one flat vector at a time.
 
 Evaluation on the coset offset·⟨h⟩ (prover.rs:69) is a pointwise pre-scale by
 offset^j followed by a plain NTT. The pre-scale, the zero tail of a short
@@ -76,16 +77,6 @@ def _effective_root(plan: NttPlan) -> int:
     return pow(plan.root, p - 2, p) if plan.scale_mont is not None else plan.root
 
 
-def _use_fourstep(x: torch.Tensor, n: int) -> bool:
-    from zkstark_tpu_torch.ops import ntt_kernel
-
-    if n < ntt_kernel.MIN_FOURSTEP:
-        return False
-    if x.dim() != 1:
-        raise ValueError(f"a size-{n} transform takes a flat vector, got {tuple(x.shape)}")
-    return True
-
-
 def _transform(x: torch.Tensor, plan: NttPlan, scaled: bool, pre=None, post=None):
     """The size-n transform of `plan` along the last axis of x, whose last
     axis may be shorter than n (the tail taken as zero): input j times
@@ -96,7 +87,11 @@ def _transform(x: torch.Tensor, plan: NttPlan, scaled: bool, pre=None, post=None
     n, field = plan.n, plan.field
     w = _effective_root(plan)
     scale = plan.scale_mont if scaled else None
-    if _use_fourstep(x, n):
+    if n >= ntt_kernel.MIN_FOURSTEP:
+        if x.dim() > 1:  # the four-step takes one flat vector: one proof at a time
+            rows = fp.as_i32(x).reshape(-1, x.shape[-1]).unbind(0)
+            outs = [fp.as_i32(_transform(fp.as_u32(r), plan, scaled, pre, post)) for r in rows]
+            return fp.as_u32(torch.stack(outs).reshape(x.shape[:-1] + (n,)))
         return ntt_kernel.ntt_fourstep(
             fp.as_u32(fp.as_i32(x).contiguous()), n, w, scale, field,
             pre_offset=pre, post_offset=post,
@@ -117,7 +112,7 @@ def _transform(x: torch.Tensor, plan: NttPlan, scaled: bool, pre=None, post=None
 
 def ntt(x: torch.Tensor, plan: NttPlan) -> torch.Tensor:
     """X[k] = Σ_j x[j]·ω^{jk} along the last axis; leading axes are
-    independent transforms (below the four-step size)."""
+    independent transforms."""
     assert x.shape[-1] == plan.n
     return _transform(x, plan, scaled=False)
 

@@ -4,7 +4,7 @@ Each wrapper launches its kernel for a CUDA tensor (or raises) and takes its
 plain-torch twin only for a tensor on the CPU. `launch_counts` reads the
 per-kernel launch counters and `reset_launch_counts` zeroes them."""
 
-from zkstark_tpu_torch.ops import ntt_kernel, sha256_kernel
+from zkstark_tpu_torch.ops import fri_fold, fs_chain, ntt_kernel, sha256_kernel
 
 
 def launch_counts() -> dict:
@@ -14,6 +14,8 @@ def launch_counts() -> dict:
         "ntt_rows": ntt_kernel.ntt_launches,
         "transpose": ntt_kernel.transpose_launches,
         "ntt_rows_pease": ntt_kernel.pease_launches,
+        "fs_chain": fs_chain.chain_launches,
+        "fri_fold": fri_fold.fold_launches,
     }
 
 
@@ -23,3 +25,5 @@ def reset_launch_counts() -> None:
     ntt_kernel.ntt_launches = 0
     ntt_kernel.transpose_launches = 0
     ntt_kernel.pease_launches = 0
+    fs_chain.chain_launches = 0
+    fri_fold.fold_launches = 0

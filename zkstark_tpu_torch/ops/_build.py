@@ -49,6 +49,12 @@ _SIGNATURES = {
     "zk_transpose": (_P, _P, _INT, _INT, _I64, _P),
     # (x, out, tw, log_m, batch, p, p_inv_neg, stream)
     "zk_ntt_rows_pease": (_P, _P, _P, _INT, _I64, _U32, _U32, _P),
+    # (state_in, state_out, digest, digest_stride, word, n_draws, draws, mont, mod,
+    #  query_range, r2, p, p_inv_neg, chains, stream)
+    "zk_fs_chain": (_P, _P, _P, _I64, _P, _INT, _P, _P, _P, _U32, _U32, _U32, _U32, _I64, _P),
+    # (evals, beta, geo_a, geo_b, geo_shift, folded, res, batch, half, scale, inv2,
+    #  p, p_inv_neg, stream)
+    "zk_fri_fold": (_P, _P, _P, _P, _INT, _P, _P, _I64, _I64, _U32, _U32, _U32, _U32, _P),
     # (a, b, out, n, p, p_inv_neg, stream)
     "zk_fp_check": (_P, _P, _P, _I64, _U32, _U32, _P),
 }

@@ -154,7 +154,7 @@ def _geo_tables_host(base: int, size: int, field: Field = FIELD101):
     return field.host_to_mont(a), field.host_to_mont(b), s
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=256)
 def _geo_tables(base: int, size: int, field: Field, device: torch.device):
     """`_geo_tables_host` on `device`, uploaded once."""
     a, b, s = _geo_tables_host(base, size, field)

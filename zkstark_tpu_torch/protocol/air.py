@@ -330,17 +330,26 @@ def _endpoint_basis(n: int, field: Field = FIELD101):
     return field.host_to_mont(v), field.mont_scalar(v_last_inv)
 
 
+@functools.lru_cache(maxsize=16)
+def _endpoint_basis_device(n: int, field: Field, device: torch.device):
+    """`_endpoint_basis` with v on `device`, uploaded once."""
+    v, v_last_inv = _endpoint_basis(n, field)
+    return fp.from_host(v, device), v_last_inv
+
+
 def interpolate_trace(trace_mont: torch.Tensor, n: int, field: Field = FIELD101):
     """Coefficients (Montgomery form, natural order, degree ≤ n−2) of the
     unique polynomial through (g^i, trace[i]) for i < n−1 — the reference's
     lagrange() output (prover.rs:60-61), as one INTT plus a rank-1 fix.
-    trace_mont is 1-D uint32 of length n−1."""
-    assert trace_mont.shape == (n - 1,)
+    trace_mont is uint32 with a last axis of length n−1; leading axes are
+    independent traces."""
+    assert trace_mont.shape[-1] == n - 1
     dev = trace_mont.device
-    padded = fp.as_u32(torch.cat([fp.as_i32(trace_mont), fp.as_i32(fp.zeros(1, dev))]))
+    tail = fp.as_i32(fp.zeros(trace_mont.shape[:-1] + (1,), dev))
+    padded = fp.as_u32(torch.cat([fp.as_i32(trace_mont), tail], dim=-1))
     c0 = ntt.intt(padded, ntt.inverse_plan(n, field))
-    v, v_last_inv = _endpoint_basis(n, field)
+    v, v_last_inv = _endpoint_basis_device(n, field, dev)
     # choose the free endpoint a_{n-1} so that coefficient n−1 vanishes:
     #   c0[n−1] + a_{n-1}·v[n−1] = 0
-    a_last = fp.mont_mul_f(field, fp.neg_f(field, c0[n - 1 :]), v_last_inv)
-    return fp.add_f(field, c0, fp.mont_mul_f(field, fp.from_host(v, dev), a_last))
+    a_last = fp.mont_mul_f(field, fp.neg_f(field, c0[..., n - 1 :]), v_last_inv)
+    return fp.add_f(field, c0, fp.mont_mul_f(field, v, a_last))

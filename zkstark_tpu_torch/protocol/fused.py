@@ -1,0 +1,178 @@
+"""The one-fetch prover core — counterpart of ``zkstark_tpu/protocol/fused.py``.
+
+The host-synced prover waits for a 32-byte fetch at every challenge boundary
+(13 per stark-101 proof). Here the channel's hash chain runs on the device
+(the CUDA kernel behind ``ops/fs_chain.py``, one launch per boundary), so
+interpolation, LDE, Merkle commits, composition, every FRI fold, every
+challenge and the phase-4 opening gathers are enqueued without one call that
+waits for the device: challenges stay device tensors, the fold reads its beta
+from device memory, and every constant table is cached on the device. Only
+one packed vector (roots, challenges, a few KB of openings) crosses to the
+host, through pinned memory behind an event (`PendingFetch`).
+
+PyTorch runs eagerly, so "one program" here means one uninterrupted run of
+launches on the current stream, not one compiled graph; since nothing inside
+waits, it can be captured in a CUDA graph later. The host then replays the
+byte transcript from the fetched roots and checks every challenge
+(`prover.fused_replay`).
+
+Every function takes a leading batch axis: B proofs are B chains in lockstep
+and B trees hashed as one flat batch (``protocol/batch.py``); `fused_core` is
+the B = 1 case with that axis removed. Sharding over a mesh is not ported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from zkstark_tpu_torch import ntt
+from zkstark_tpu_torch.field import fp
+from zkstark_tpu_torch.hash import merkle
+from zkstark_tpu_torch.ops import fs_chain
+from zkstark_tpu_torch.protocol import air
+from zkstark_tpu_torch.protocol import prover as pr
+from zkstark_tpu_torch.protocol.config import StarkConfig
+from zkstark_tpu_torch.protocol.openings import (
+    map_leaves,
+    pack_tree,
+    sparse_openings_device,
+    unpack_tree,
+)
+from zkstark_tpu_torch.transcript import device_channel as dc
+
+
+def fused_core_batch(cfg: StarkConfig, traces_mont: torch.Tensor) -> dict:
+    """(B, trace_len) Montgomery traces → everything B transcripts and
+    decommitments need, as uint32 tensors on the traces' device, the
+    challenges derived there: roots (B, 2 + fri_rounds, 8) digests in commit
+    order, alphas (B, n_constraints), betas (B, fri_rounds), free_term (B,),
+    queries (B, n_queries), and the openings of
+    `openings.sparse_openings_device` behind the leading B. Makes no call
+    that waits for the device once its constant tables are cached (after one
+    prove of the config on the device)."""
+    fld = cfg.field
+    bsz = traces_mont.shape[0]
+    dev = traces_mont.device
+
+    # ---- Phase 1: interpolate + LDE + commit (prover.rs:24-85) ----
+    coeffs = air.interpolate_trace(traces_mont, cfg.trace_domain, fld)
+    f_eval = ntt.coset_ntt(coeffs, cfg.eval_domain, cfg.coset_offset, fld)
+    f_res = fp.from_mont_f(fld, f_eval)
+    f_levels = merkle.build_levels_batch(f_res)
+    roots = [f_levels[-1][:, 0]]
+
+    # ---- Phase 2: composition (prover.rs:87-180) ----
+    state = dc.zero_state((bsz,), dev)
+    state, alphas, alphas_mont, _ = fs_chain.chain_step(
+        state, digest=roots[0], draws=cfg.n_constraints, field=fld
+    )
+    cp = pr.composition_eval(cfg, f_eval, alphas_mont)
+    del f_eval, coeffs
+    cp_res = fp.from_mont_f(fld, cp)
+    cp_levels = merkle.build_levels_batch(cp_res)
+    roots.append(cp_levels[-1][:, 0])
+
+    # ---- Phase 3: FRI (prover.rs:182-254). One chain launch per boundary:
+    # the root just built, then the draw that follows it ----
+    layer_res, layer_levels = [cp_res], [cp_levels]
+    evals = cp
+    betas = []
+    for layer in range(cfg.fri_rounds):
+        state, beta, beta_mont, _ = fs_chain.chain_step(
+            state, digest=roots[-1], draws=1, field=fld
+        )
+        betas.append(beta)
+        evals, res, levels = pr.fri_fold_eval(
+            cfg, layer, evals, beta_mont[:, 0], build=merkle.build_levels_batch
+        )
+        layer_res.append(res)
+        layer_levels.append(levels)
+        roots.append(levels[-1][:, 0])
+    free_term = fp.as_u32(fp.as_i32(layer_res[-1])[:, 0].contiguous())
+
+    # ---- Phase 4 prologue: the last root, the free term, then every query
+    # draw before any opening (prover.rs:263, generalised to n_queries) ----
+    state, _, _, queries = fs_chain.chain_step(
+        state, digest=roots[-1], word=free_term, draws=cfg.n_queries, field=fld,
+        query_range=cfg.query_range,
+    )
+
+    def stack(parts, width):
+        if not parts:
+            return fp.zeros((bsz, 0) + width, dev)
+        return fp.as_u32(torch.stack([fp.as_i32(t) for t in parts], dim=1))
+
+    return {
+        "roots": stack(roots, (8,)),
+        "alphas": alphas,
+        "betas": fp.as_u32(torch.cat([fp.as_i32(b) for b in betas], dim=1))
+        if betas else fp.zeros((bsz, 0), dev),
+        "free_term": free_term,
+        "queries": queries,
+        **sparse_openings_device(cfg, f_res, f_levels, layer_res, layer_levels, queries),
+    }
+
+
+def fused_core(cfg: StarkConfig, trace_mont: torch.Tensor) -> dict:
+    """(trace_len,) Montgomery trace → the dict of `fused_core_batch` without
+    the batch axis, the JAX package's shapes: roots (2 + fri_rounds, 8),
+    alphas (n_constraints,), betas (fri_rounds,), free_term (), queries
+    (n_queries,), open_f_vals (q, n_shifts), open_f_paths (q, n_shifts,
+    depth, 8), open_cp_vals (q,), open_cp_paths (q, depth, 8) and per FRI
+    layer open_fri_vals (q, 2), open_fri_paths (q, 2, depth, 8)."""
+    out = fused_core_batch(cfg, fp.as_u32(fp.as_i32(trace_mont)[None]))
+    return map_leaves(out, lambda t: fp.as_u32(fp.as_i32(t)[0]))
+
+
+def out_shapes(cfg: StarkConfig, lead: tuple = ()) -> dict:
+    """The shape of every leaf of `fused_core` (lead = ()) or
+    `fused_core_batch` (lead = (B,)), from the config alone."""
+    q, shifts, rounds = cfg.n_queries, len(cfg.air.shifts), cfg.fri_rounds
+    depth = cfg.eval_domain.bit_length() - 1
+    return {
+        "roots": lead + (2 + rounds, 8),
+        "alphas": lead + (cfg.n_constraints,),
+        "betas": lead + (rounds,),
+        "free_term": lead,
+        "queries": lead + (q,),
+        "open_f_vals": lead + (q, shifts),
+        "open_f_paths": lead + (q, shifts, depth, 8),
+        "open_cp_vals": lead + (q,),
+        "open_cp_paths": lead + (q, depth, 8),
+        "open_fri_vals": [lead + (q, 2) for _ in range(rounds)],
+        "open_fri_paths": [lead + (q, 2, depth - layer, 8) for layer in range(rounds)],
+    }
+
+
+def fused_core_packed(cfg: StarkConfig, trace_mont: torch.Tensor) -> torch.Tensor:
+    """`fused_core` with the whole result packed into one flat uint32 vector."""
+    return pack_tree(fused_core(cfg, trace_mont))
+
+
+def unpack_out(cfg: StarkConfig, flat: np.ndarray) -> dict:
+    """Host-side inverse of `fused_core_packed`."""
+    return unpack_tree(flat, out_shapes(cfg))
+
+
+class PendingFetch:
+    """A packed result on its way to the host. On a card the words are copied
+    to pinned host memory on the current stream without blocking, behind a
+    recorded event; `wait` blocks on that event alone, so kernels enqueued
+    after the copy keep the card busy meanwhile."""
+
+    def __init__(self, flat: torch.Tensor):
+        words = fp.as_i32(flat)
+        if flat.device.type == "cuda":
+            self.host = torch.empty(words.shape, dtype=torch.int32, pin_memory=True)
+            self.host.copy_(words, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(flat.device))
+        else:
+            self.host, self.event = words, None
+
+    def wait(self) -> np.ndarray:
+        """The fetched words as a uint32 numpy array."""
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy().view(np.uint32)

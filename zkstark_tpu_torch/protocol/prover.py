@@ -1,13 +1,5 @@
 """The four-phase STARK prover — counterpart of ``zkstark_tpu/protocol/prover.py``.
 
-PyTorch runs eagerly, so there is no program to fuse the phases and the
-Fiat-Shamir chain into (the JAX default, ``protocol/fused.py``). The prover
-follows the JAX host-synced order instead (prover.py:559-587): the device
-holds every evaluation vector and Merkle level, and the host `Channel`
-commits each 32-byte root and draws each challenge — one small fetch per
-commit. Phase 4 gathers only the opened values and sibling digests on the
-device (`openings.sparse_openings`). The bytes equal both JAX paths.
-
   1. trace (host) → INTT interpolation + coset-NTT LDE + Merkle commit;
   2. pointwise constraint composition on the coset (the reference's
      polynomial divisions become products with precomputed inverse
@@ -15,16 +7,29 @@ device (`openings.sparse_openings`). The bytes equal both JAX paths.
   3. FRI: evaluation-form folds, each followed by a Merkle commit;
   4. decommit: per query, the trace openings and one pair per FRI layer.
 
-`device_phases` runs everything that touches the device (through the query
-draws and the fetch of the openings); `decommit` serializes the fetched
-openings on the host. `prove` is the one followed by the other; the
-checkpoint (protocol/checkpoint.py) saves at that seam and at each phase.
+`prove` has the JAX package's two paths, and both give the same bytes:
+
+  * fused (the default): phases 1–3, the Fiat-Shamir chain and the opening
+    gathers run on the device without ever waiting for the host
+    (``protocol/fused.py``; the chain is the CUDA kernel of
+    ``ops/fs_chain.py``). One packed vector of a few KB is fetched, the host
+    `Channel` replays the transcript from the fetched roots (`fused_replay`,
+    which raises `DeviceChannelMismatch` if any device-drawn challenge
+    differs) and serializes the openings (`decommit`). `prove_pipelined`
+    keeps several such proofs in flight.
+  * host-synced (``fused=False``): the host `Channel` commits each 32-byte
+    root and draws each challenge, one small fetch per commit.
+    `device_phases` runs everything that touches the device (through the
+    query draws and the fetch of the openings) and `decommit` the rest; the
+    checkpoint (``protocol/checkpoint.py``) saves at that seam and at each
+    phase, and the per-phase `timings` spans exist on this path only.
 """
 
 from __future__ import annotations
 
 import functools
 import time
+from collections import deque
 
 import numpy as np
 import torch
@@ -33,6 +38,7 @@ from zkstark_tpu_torch import ntt
 from zkstark_tpu_torch.field import fp
 from zkstark_tpu_torch.hash import merkle
 from zkstark_tpu_torch.hash.sha256 import digest_to_bytes
+from zkstark_tpu_torch.ops import fri_fold
 from zkstark_tpu_torch.protocol import air
 from zkstark_tpu_torch.protocol.config import StarkConfig
 from zkstark_tpu_torch.protocol.openings import sparse_openings
@@ -44,6 +50,7 @@ from zkstark_tpu_torch.transcript import Channel, bincode
 _HOST_CONST_MAX = 1 << 20
 
 
+@functools.lru_cache(maxsize=4)
 def composition_constants(cfg: StarkConfig, device) -> dict:
     """The coset domain xs and one inverse denominator per constraint, in
     alpha order, as uint32 Montgomery tensors on `device`:
@@ -53,7 +60,13 @@ def composition_constants(cfg: StarkConfig, device) -> dict:
 
     The coset offset·⟨h⟩ is disjoint from ⟨h⟩, so every denominator is
     invertible on it and the pointwise quotients equal the reference's exact
-    polynomial divisions (prover.rs:101-151)."""
+    polynomial divisions (prover.rs:101-151).
+
+    Kept per (config, device), one domain-sized vector per constraint and
+    one for xs: above 2^20 points building them is a Fermat inversion of the
+    whole domain on the device (about 0.6 s at 2^24 points on an NVIDIA H100,
+    ten times the rest of a proof's device work), and below, uploading them
+    would make every prove wait for the device."""
     if cfg.eval_domain <= _HOST_CONST_MAX:
         c = _composition_constants_host(cfg)
         return {
@@ -116,18 +129,21 @@ def _composition_constants_device(cfg: StarkConfig, device) -> dict:
 
 
 def _roll(x: torch.Tensor, shift: int) -> torch.Tensor:
-    return fp.as_u32(torch.roll(fp.as_i32(x), shift))
+    return fp.as_u32(torch.roll(fp.as_i32(x), shift, dims=-1))
 
 
-def composition_eval(cfg: StarkConfig, f_eval: torch.Tensor, alphas_mont: list):
+def composition_eval(cfg: StarkConfig, f_eval: torch.Tensor, alphas_mont):
     """Pointwise constraint composition on the coset (prover.rs:87-180)
-    from the config's AIR. f_eval: (d,) uint32 Montgomery; alphas_mont:
-    Montgomery-form ints, one per constraint. f(g^k·x) is a roll by
+    from the config's AIR. f_eval: (…, d) uint32 Montgomery, the leading axes
+    independent proofs; alphas_mont: Montgomery-form ints, one per constraint,
+    or a (…, n_constraints) uint32 device tensor. f(g^k·x) is a roll by
     k·blowup (g = h^blowup)."""
     c = composition_constants(cfg, f_eval.device)
     fld = cfg.field
     b = cfg.blowup
     shifted = {k: f_eval if k == 0 else _roll(f_eval, -k * b) for k in cfg.air.shifts}
+    if isinstance(alphas_mont, torch.Tensor):
+        alphas_mont = [alphas_mont[..., i : i + 1] for i in range(cfg.n_constraints)]
     acc = None
     for con, inv_den, alpha in zip(cfg.constraints, c["inv_dens"], alphas_mont):
         if isinstance(con, air.Boundary):
@@ -140,45 +156,26 @@ def composition_eval(cfg: StarkConfig, f_eval: torch.Tensor, alphas_mont: list):
 
 
 def _fri_layer_params(cfg: StarkConfig, layer: int):
-    """(half-domain size, 1/h^{2^k}, 1/offset^{2^k}) of FRI layer k."""
+    """(1/h^{2^k}, 1/offset^{2^k}) of FRI layer k, whose domain is
+    {offset^{2^k}·(h^{2^k})^j}: 1/x_j = inv_off·inv_base^j."""
     p = cfg.field.p
     base = pow(cfg.domain_generator, 1 << layer, p)
     off = pow(cfg.coset_offset, 1 << layer, p)
-    return (cfg.eval_domain >> layer) // 2, pow(base, p - 2, p), pow(off, p - 2, p)
+    return pow(base, p - 2, p), pow(off, p - 2, p)
 
 
-def fri_layer_constants(cfg: StarkConfig, layer: int, device) -> torch.Tensor:
-    """1/x_j for j < m/2 on the layer-k domain {offset^{2^k}·(h^{2^k})^j},
-    Montgomery form. Host numpy while the half-domain is ≤ 2^20, computed on
-    the device above."""
-    half, inv_base, inv_off = _fri_layer_params(cfg, layer)
-    if half <= _HOST_CONST_MAX:
-        return fp.from_host(_fri_layer_constants_host(cfg, layer), device)
-    return fp.powers_iota_f(cfg.field, inv_base, half, scale=inv_off, device=device)
-
-
-@functools.lru_cache(maxsize=None)
-def _fri_layer_constants_host(cfg: StarkConfig, layer: int) -> np.ndarray:
-    half, inv_base, inv_off = _fri_layer_params(cfg, layer)
-    return cfg.field.host_to_mont(
-        cfg.field.host_powers_pow2(inv_base, half, scale=inv_off)
-    )
-
-
-def fri_fold_eval(cfg: StarkConfig, layer: int, evals: torch.Tensor, beta_mont: int):
+def fri_fold_eval(cfg: StarkConfig, layer: int, evals: torch.Tensor, beta_mont, build=None):
     """Evaluation-form FRI fold P'(x²) = (P(x)+P(−x))/2 + β·(P(x)−P(−x))/(2x)
     — the reference's coefficient fold (polynomial.rs:385-400) on the
-    halved-and-squared domain. Returns (folded, residues, Merkle levels)."""
-    fld = cfg.field
-    inv_x = fri_layer_constants(cfg, layer, evals.device)
-    half = evals.shape[-1] // 2
-    a, b = evals[:half], evals[half:]
-    inv2 = fld.mont_scalar((fld.p + 1) // 2)
-    even = fp.mont_mul_f(fld, fp.add_f(fld, a, b), inv2)
-    odd = fp.mont_mul_f(fld, fp.mont_mul_f(fld, fp.sub_f(fld, a, b), inv2), inv_x)
-    folded = fp.add_f(fld, even, fp.mont_mul_f(fld, odd, beta_mont))
-    res = fp.from_mont_f(fld, folded)
-    return folded, res, merkle.build_levels(res)
+    halved-and-squared domain — through `ops.fri_fold.fri_fold`. evals
+    (…, m): the last axis is the layer domain, the leading axes independent
+    proofs; beta_mont a Montgomery-form int, or a uint32 device tensor with
+    one challenge per proof. `build` replaces `merkle.build_levels` (the
+    batched prover passes `merkle.build_levels_batch`). Returns (folded,
+    residues, Merkle levels)."""
+    inv_base, inv_off = _fri_layer_params(cfg, layer)
+    folded, res = fri_fold.fri_fold(evals, beta_mont, inv_base, inv_off, cfg.field)
+    return folded, res, (build or merkle.build_levels)(res)
 
 
 class ProverArtifacts:
@@ -235,6 +232,22 @@ def _path_bytes(path) -> list:
     return [digest_to_bytes(path[d]) for d in range(path.shape[0])]
 
 
+class DeviceChannelMismatch(RuntimeError):
+    """The device-derived Fiat-Shamir chain disagreed with the host replay."""
+
+
+def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """uint32 host array → device tensor without waiting for the device: on
+    a card the words are staged in pinned memory and copied asynchronously on
+    the current stream (a copy from pageable memory would first wait for
+    every kernel already enqueued, which is what pipelined proving must not
+    do)."""
+    if device.type != "cuda":
+        return fp.from_host(arr, device)
+    staged = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.uint32).view(np.int32))
+    return fp.as_u32(staged.pin_memory().to(device, non_blocking=True))
+
+
 def trace_to_device(cfg: StarkConfig, secret: int, device) -> torch.Tensor:
     """The witness (host) in Montgomery form on `device`; raises ValueError
     if it does not meet the public boundary."""
@@ -245,7 +258,7 @@ def trace_to_device(cfg: StarkConfig, secret: int, device) -> torch.Tensor:
             "witness does not satisfy the public boundary: trace endpoint "
             f"{int(trace[-1])} != {cfg.boundary_last}"
         )
-    return fp.from_host(fld.host_to_mont(trace), device)
+    return upload(fld.host_to_mont(trace), torch.device(device))
 
 
 def phase1(cfg: StarkConfig, channel: Channel, trace_mont: torch.Tensor):
@@ -352,23 +365,108 @@ def decommit(cfg: StarkConfig, channel: Channel, out: dict, queries: list) -> Pr
     return Proof(state=state, data=data)
 
 
+def fused_replay(cfg: StarkConfig, channel: Channel, out: dict) -> list:
+    """Replay the byte transcript through the host channel from the fused
+    core's fetched roots, raising `DeviceChannelMismatch` unless every
+    host-derived challenge equals the device-derived one: each proof holds
+    the device chain against the host chain. `out` is one proof's fetched
+    `fused_core` dict (numpy). Returns the query indices."""
+    roots = out["roots"]
+    channel.commit_hash(digest_to_bytes(roots[0]))
+    for k in range(cfg.n_constraints):
+        if channel.get_u32() != int(out["alphas"][k]):
+            raise DeviceChannelMismatch(f"alpha[{k}]")
+    channel.commit_hash(digest_to_bytes(roots[1]))
+    for layer in range(cfg.fri_rounds):
+        if channel.get_u32() != int(out["betas"][layer]):
+            raise DeviceChannelMismatch(f"beta[{layer}]")
+        channel.commit_hash(digest_to_bytes(roots[2 + layer]))
+    channel.commit_u32(int(out["free_term"]))
+    queries = []
+    for qi in range(cfg.n_queries):
+        x = channel.get_u32() % cfg.query_range
+        if x != int(out["queries"][qi]):
+            raise DeviceChannelMismatch(f"query index {qi}")
+        queries.append(x)
+    return queries
+
+
+def finish_fused(cfg: StarkConfig, out: dict, artifacts: ProverArtifacts | None = None) -> Proof:
+    """One proof's fetched `fused_core` dict → Proof: host replay, then the
+    serialization of the openings."""
+    channel = Channel()
+    queries = fused_replay(cfg, channel, out)
+    if artifacts is not None:
+        artifacts.query_indices = list(queries)
+    return decommit(cfg, channel, out, queries)
+
+
 def prove(
     cfg: StarkConfig = StarkConfig(),
     secret: int = 3141592,
     device="cuda",
     artifacts: ProverArtifacts | None = None,
     timings: dict | None = None,
+    fused: bool = True,
 ) -> Proof:
     """A proof byte-identical to the reference's generate_proof
     (prover.rs:9-293) and to ``zkstark_tpu.protocol.prove`` for the same
-    config and witness: `device_phases`, then `decommit`. `device` is where
-    every vector and Merkle level lives ("cuda" runs the CUDA kernels and
-    raises if there is no CUDA device). `timings`, if given, is filled with
-    named phase spans in seconds; each span waits for the device."""
+    config and witness. `device` is where every vector and Merkle level lives
+    ("cuda" runs the CUDA kernels and raises if there is no CUDA device).
+
+    fused=True (the default, as in the JAX package): the device runs phases
+    1–3 and derives every challenge itself, one packed result is fetched, and
+    the host replays the transcript and checks every challenge against the
+    device's. `artifacts` then receives the query indices only. `timings`, if
+    given, is filled with the spans `trace`, `device_program`, `fetch` and
+    `replay_decommit`, in seconds; each span waits for the device.
+    fused=False: the host-synced path (`device_phases`, then `decommit`), one
+    fetch per commit, with the spans `trace`, `phase1_lde_commit`,
+    `phase2_composition`, `phase3_fri` and `phase4_decommit`."""
     dev = resolve_device(device)
-    channel = Channel()
     clock = _PhaseClock(timings, dev)
+    if fused:
+        from zkstark_tpu_torch.protocol import fused as fused_mod
+
+        trace_mont = trace_to_device(cfg, secret, dev)
+        clock.lap("trace")
+        pending = fused_mod.PendingFetch(fused_mod.fused_core_packed(cfg, trace_mont))
+        clock.lap("device_program")
+        out = fused_mod.unpack_out(cfg, pending.wait())
+        clock.lap("fetch")
+        proof = finish_fused(cfg, out, artifacts)
+        clock.lap("replay_decommit")
+        return proof
+    channel = Channel()
     out, queries = device_phases(cfg, secret, dev, channel, artifacts, clock)
     proof = decommit(cfg, channel, out, queries)
     clock.lap("phase4_decommit")
     return proof
+
+
+def prove_pipelined(cfg: StarkConfig, secrets, depth: int = 2, device="cuda") -> list:
+    """Prove a sequence of witnesses with the device kept busy: up to `depth`
+    fused device programs stay enqueued while the host computes the next
+    witness and fetches, replays and serializes earlier proofs. The fused
+    core never waits for the device, and each packed result is copied to
+    pinned host memory behind an event, so the host blocks only on the oldest
+    proof in flight. Every proof's bytes equal a solo `prove` of the same
+    secret: the chains run on the device and no proof depends on another.
+    All proofs share the current stream, so they run on the card one after
+    the other and the tensors of one are freed for the next."""
+    from zkstark_tpu_torch.protocol import fused as fused_mod
+
+    dev = resolve_device(device)
+    pending, proofs = deque(), []
+
+    def finish():
+        proofs.append(finish_fused(cfg, fused_mod.unpack_out(cfg, pending.popleft().wait())))
+
+    for s in secrets:
+        trace_mont = trace_to_device(cfg, s, dev)
+        pending.append(fused_mod.PendingFetch(fused_mod.fused_core_packed(cfg, trace_mont)))
+        if len(pending) > depth:
+            finish()
+    while pending:
+        finish()
+    return proofs

@@ -57,7 +57,7 @@ def run(trace_bits: int = 21, blowup: int = 8, queries: int = 1, repeats: int = 
         torch.cuda.reset_peak_memory_stats(dev)
     phases = {}
     t0 = time.perf_counter()
-    proof = prove(cfg, SECRET, device=dev, timings=phases)
+    proof = prove(cfg, SECRET, device=dev, timings=phases, fused=False)
     cold = time.perf_counter() - t0
     emit({"step": "cold_prove", "seconds": round(cold, 4), "proof_bytes": len(proof.data),
           "phases": {k: round(v, 4) for k, v in phases.items()}})
@@ -65,7 +65,7 @@ def run(trace_bits: int = 21, blowup: int = 8, queries: int = 1, repeats: int = 
     best = float("inf")
     for _ in range(repeats):
         t0 = time.perf_counter()
-        again = prove(cfg, SECRET, device=dev)
+        again = prove(cfg, SECRET, device=dev, fused=False)
         best = min(best, time.perf_counter() - t0)
         if again != proof:
             raise AssertionError("the proof changed between runs")

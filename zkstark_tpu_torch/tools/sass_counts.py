@@ -8,8 +8,13 @@ machine ops, the commonest opcodes, and every loop (a backward branch and
 its target) with its length, its opcodes and its shared-memory loads and
 stores. A fully unrolled kernel (the SHA-256 pair) shows its count per hash
 as the whole kernel's; the NTT row kernel shows its count per radix-8 task as
-the loop with 8 ``LDS`` and 8 ``STS`` (12 butterflies). ``--dump DIR`` also
-writes each kernel's SASS to ``DIR/<kernel>.sass``.
+the loop with 8 ``LDS`` and 8 ``STS`` (12 butterflies). The Pease kernel is
+unrolled over its passes: an instance's whole count is one thread's, which
+runs m/4 / threads radix-4 tasks (4 butterflies each) in each of log2(m)/2
+passes (``ntt_rows_pease_kernel<12>``: 512 threads, 2 tasks × 6 passes, 48
+butterflies). The FRI fold's vector instance (``fri_fold_kernel<1>``) counts
+four outputs, the chain kernel one boundary with its draw loop. ``--dump
+DIR`` also writes each kernel's SASS to ``DIR/<kernel>.sass``.
 """
 
 from __future__ import annotations
@@ -90,9 +95,10 @@ def main(argv=None) -> int:
         Path(args.dump).mkdir(parents=True, exist_ok=True)
     for name, instrs in parse(sass).items():
         short = next((k for k in ("ntt_rows_pease_kernel", "ntt_rows_kernel", "transpose_kernel",
-                                  "sha256_leaf", "sha256_node", "fp_check_kernel") if k in name),
+                                  "sha256_leaf", "sha256_node", "fp_check_kernel",
+                                  "fs_chain_kernel", "fri_fold_kernel") if k in name),
                      name)
-        instance = re.search(r"kernelILi(\d+)E", name)  # a template instance: its argument
+        instance = re.search(r"kernelIL[ib](\d+)E", name)  # a template instance: its argument
         if instance:
             short += f"<{instance.group(1)}>"
         print(json.dumps({"kernel": short, **summarize(instrs)}), flush=True)
