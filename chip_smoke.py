@@ -18,7 +18,12 @@ Phases, one output line (or a few) each:
      and `transpose` on a missing tail; then `coset_ntt` at 2^13, 2^24 and
      2^25 and `intt` at 2^10 and 2^22 on the card, timed, the 2^25 call
      under torch.profiler, where every device kernel in the window must be
-     one of the port's own (or a memset or memcpy);
+     one of the port's own (or a memset or memcpy). `limb_dft_rows` against
+     its plain version and against `ntt_rows` at the 2^27 LDE's two passes and
+     at 4096 x 4096, each fused option once, both primes; `composition`
+     against `composition_eval_plain` for the three AIRs at 2^13 and for
+     square-chain at 2^24, B = 1 and 3; `coset_ntt` at 2^27 timed and under
+     the profiler like the 2^25 call;
   4. stark-101 proved on the card: the golden 7,836-byte transcript and
      final state, accepted by the port's verifier and the C++ verifier, every
      kernel launched;
@@ -47,7 +52,13 @@ Phases, one output line (or a few) each:
      the 2^24 statement at depth 2, each equal to phase 6's proof, with the
      per-proof time beside the solo warm times and the peak memory; this is
      the main-path run of the one-fetch slice whose launches are counted;
- 12. the kernel JSON line, the wall time, then the result line.
+ 12. past 2^26: the 16,777,215-step square-chain statement (2^27 points,
+     24 FRI rounds) through ``tools.prove_big.run(24, repeats=1)`` and once
+     through the fused ``prove()``: the same bytes, of the length the proof
+     layout gives, both verifiers accept, `limb_dft_rows` and `composition`
+     launched, phase spans and peak memory; this is the main-path run of the
+     big-domain slice whose launches are counted;
+ 13. the kernel JSON line, the wall time, then the result line.
 
 Every phase that proves checks the launch counters of its own route.
 
@@ -71,7 +82,9 @@ BIG_SECRET = 271828
 BIG_PROOF_LEN = 22496
 HUGE_TRACE_BITS = 22  # 2^25 evaluation points
 HUGE_PROOF_LEN = 24252  # artifacts/PROVE_2e25_r04.jsonl
-ROW_KERNELS = ("sha256_leaf", "sha256_node", "ntt_rows")  # below the four-step size
+GIANT_TRACE_BITS = 24  # 2^27 evaluation points: n1 = 16384 > MAX_ROW, the limb route
+# every proof launches these (below the four-step size: no transpose)
+ROW_KERNELS = ("sha256_leaf", "sha256_node", "ntt_rows", "composition")
 DIT_KERNELS = (*ROW_KERNELS, "transpose")
 FUSED_KERNELS = ("fs_chain", "fri_fold")  # the one-fetch path's own
 
@@ -81,6 +94,9 @@ FUSED_KERNELS = ("fs_chain", "fri_fold")  # the one-fetch path's own
 # has 64 INT32 lanes).
 HBM_BYTES_PER_S = 3.35e12
 INT32_INSTR_PER_S = 67e12 / 4
+# Dense INT8 rate of the tensor cores, same data sheet: 1,979 TOP/s, an
+# operation being a multiply or an add, so half as many multiply-adds.
+INT8_OPS_PER_S = 1979e12
 # The fewest integer ops (machine ops, one issue slot each) the arithmetic needs (loads, stores and
 # addressing not counted), as the bounds take them:
 #  * a Montgomery product of reduced residues 6 (a wide multiply, a low
@@ -103,8 +119,14 @@ SHA_LEAF = SHA_ROUNDS - 11 + 370
 #  * an output of the FRI fold: 1/x_j from its two table words (a product),
 #    (a + b)/2 (an add, a product), β·(a − b)/(2x) (a subtract, two products),
 #    their sum, and the REDC of from_mont (5): 4 products, 2 adds, 1 subtract.
+#  * an output of a limb-DFT stage, outside the tensor cores: three 64-bit
+#    shift-adds of the limb sums (two ops each), the REDC (5) and, in the first
+#    stage, the in-row twiddle (a product);
+#  * a point of the composition: the field ops of its program (counted by
+#    `ops.composition.Program.field_ops`) and the REDC of from_mont (5).
 SHA_BLOCK = SHA_ROUNDS + 48 * 10
 FOLD_OPS = 4 * FP_MUL + 2 * FP_ADD + FP_SUB + 5
+LIMB_RECOMBINE = 6 + 5
 
 SRC = {
     "sha256_leaf": ("zkstark_tpu_torch/csrc/sha256.cu", "zkstark_tpu/ops/sha256_kernel.py:105"),
@@ -114,6 +136,8 @@ SRC = {
     "ntt_rows_pease": ("zkstark_tpu_torch/csrc/ntt_pease.cu", "zkstark_tpu/ops/ntt_kernel.py:125"),
     "fs_chain": ("zkstark_tpu_torch/csrc/fs_chain.cu", "zkstark_tpu/transcript/device_channel.py:63"),
     "fri_fold": ("zkstark_tpu_torch/csrc/fri_fold.cu", "zkstark_tpu/protocol/prover.py:255"),
+    "limb_dft_rows": ("zkstark_tpu_torch/csrc/limb_dft.cu", "zkstark_tpu/ops/mxu_ntt.py:154"),
+    "composition": ("zkstark_tpu_torch/csrc/composition.cu", "zkstark_tpu/protocol/prover.py:213"),
 }
 
 
@@ -142,12 +166,13 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((fp.wide(a) - fp.wide(b)).abs().max().item())
 
 
-def bound(nbytes: float, instr: float) -> dict:
+def bound(nbytes: float, instr: float, int8_macs: float = 0.0) -> dict:
     """The least milliseconds the card could take to move `nbytes` (each
-    input read once, each output written once) and to issue `instr` integer
-    ops, and which of the two sets it."""
+    input read once, each output written once), to execute `instr` integer
+    ops and to do `int8_macs` u8 multiply-adds on the tensor cores, and
+    whether the bytes or the operations (of either type) set it."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = instr / INT32_INSTR_PER_S * 1e3
+    by_ops = max(instr / INT32_INSTR_PER_S, 2 * int8_macs / INT8_OPS_PER_S) * 1e3
     return dict(bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
 
@@ -162,12 +187,48 @@ def ntt_rows_bound(batch, valid, m, pre=False, uv=False, post=False, scale=False
     return bound(4 * words, muls * FP_MUL + adds * (FP_ADD + FP_SUB))
 
 
+def limb_rows_bound(batch, valid, m, pre=False, uv=False, post=False, scale=False) -> dict:
+    """Bound of one `limb_dft_rows` call: rows, the in-row twiddle, the two
+    limb matrices and the tables read once, the result written once; the
+    multiply-adds of the two matrix products (the first contracts only the
+    rows of the (k1, k2) view that hold input), and per output the
+    recombination, the REDC and the fused products."""
+    from zkstark_tpu_torch.ops import ntt_kernel
+
+    k1, k2 = ntt_kernel.split(m)
+    rows_in = -(-(-(-valid // k2)) // 8) * 8  # whole k-steps of 8
+    words = (batch * (valid + m) + m + 4 * k1 * k1 + 4 * k2 * k2
+             + (batch // min(128, batch) + min(128, batch)) * m * uv)
+    macs = batch * (16 * k1 * rows_in * k2 + 16 * k2 * m)
+    instr = batch * (m * (2 * LIMB_RECOMBINE + FP_MUL)
+                     + FP_MUL * (2 * valid * pre + 2 * m * uv + 2 * m * post + m * scale))
+    return bound(4 * words, instr, macs)
+
+
+def expected_proof_len(cfg) -> int:
+    """The length of a proof's transcript from the proof layout: the roots
+    (32 B each), the free term and every drawn challenge (4 B each), and per
+    query the trace openings, the composition opening (a value and a path: 4
+    + 8 + 32·depth) and one pair per FRI layer (two values, two paths)."""
+    depth = cfg.eval_domain.bit_length() - 1
+    rounds, q = cfg.fri_rounds, cfg.n_queries
+    opening = (len(cfg.air.shifts) + 1) * (4 + 8 + 32 * depth)
+    pairs = sum(8 + 2 * (8 + 32 * (depth - layer)) for layer in range(rounds))
+    return 32 * (2 + rounds) + 4 + 4 * (cfg.n_constraints + rounds + q) + q * (opening + pairs)
+
+
 def require_launched(counts: dict, names, what: str) -> None:
     """Each kernel in `names` launched at least once in the run `counts`
     was read after."""
     missing = [n for n in names if counts[n] <= 0]
     if missing:
         raise AssertionError(f"{what}: kernels {missing} were not launched: {counts}")
+
+
+def require_one_composition(counts: dict, what: str) -> None:
+    """A proof, or a batch of proofs, launches the composition kernel once."""
+    if counts["composition"] != 1:
+        raise AssertionError(f"{what}: {counts['composition']} composition launches, want 1")
 
 
 def sm_clocks() -> str:
@@ -409,6 +470,7 @@ def phase3_kernels() -> dict:
         del x
     say("phase3 clocks", sm_clocks())
     rows.update(phase3_chain_and_fold())
+    rows.update(phase3_limb_and_composition())
     phase3_lde()
     return rows
 
@@ -495,13 +557,145 @@ def phase3_chain_and_fold() -> dict:
     return rows
 
 
+def phase3_limb_and_composition() -> dict:
+    """`limb_dft_rows` against its plain version and `ntt_rows` at the calls
+    of the 2^27 LDE and at the 2^24 LDE's shape, and `composition` against
+    `composition_eval_plain` (tolerance 0 everywhere)."""
+    from zkstark_tpu_torch.field import fp
+    from zkstark_tpu_torch.ntt import core as ntt_core
+    from zkstark_tpu_torch.ops import composition, limb_dft, ntt_kernel
+    from zkstark_tpu_torch.protocol import prover as pr
+    from zkstark_tpu_torch.protocol.air import AIRS, SQUARE_CHAIN
+    from zkstark_tpu_torch.protocol.config import StarkConfig
+
+    rng = np.random.default_rng(35)
+    rows = {}
+
+    def rand_mont(fld, shape):
+        return fp.from_host(fld.host_to_mont(rng.integers(0, fld.p, shape, dtype=np.uint64)), "cuda")
+
+    # no one PyTorch call computes an exact DFT over F_p: no library time; the
+    # yardstick beside each line is `ntt_rows` on the same rows (m <= 8192)
+    for fld in (fp.FIELD101, fp.FIELD_ALT):
+        for batch, m in ((8192, 16384), (16384, 8192), (4096, 4096)):
+            x = rand_mont(fld, (batch, m))
+            w = ntt_core.forward_plan(m, fld).root
+            label = f"batch={batch} m={m} p={fld.p}"
+            if m <= ntt_kernel.MAX_ROW:
+                if max_abs_err(limb_dft.limb_dft_rows(x, w, fld), ntt_kernel.ntt_rows(x, w, fld)):
+                    raise AssertionError(f"limb_dft_rows {label} differs from ntt_rows")
+            if fld is fp.FIELD101:
+                r = _compare("limb_dft_rows", label,
+                             lambda: limb_dft.limb_dft_rows(x, w, fld),
+                             lambda: limb_dft.limb_dft_rows_plain(x, w, fld),
+                             limb_rows_bound(batch, m, m), iters=10)
+                if m <= ntt_kernel.MAX_ROW:
+                    rows_ms = cuda_ms(lambda: ntt_kernel.ntt_rows(x, w, fld), 10)
+                    say(f"phase3 limb_dft_rows {label} ==ntt_rows ntt_rows_ms={rows_ms:.4f} "
+                        f"limb_over_ntt_rows={r['ms'] / rows_ms:.2f}")
+                else:
+                    rows["limb_dft_rows"] = r
+            else:
+                _all_equal("limb_dft_rows", label, [limb_dft.limb_dft_rows(x, w, fld)],
+                           [limb_dft.limb_dft_rows_plain(x, w, fld)])
+                say(f"phase3 limb_dft_rows {label} max_abs_err=0 tol=0")
+            del x
+
+    # each fused option at the calls the 2^27 path makes: pass 1 of the LDE
+    # (a short valid prefix, the coset pre-scale, the U·V twiddle), pass 2 of
+    # a coset INTT (the post-scale), pass 1 of an INTT (1/n folded into U), and
+    # the scalar on a short call
+    fld = fp.FIELD101
+    geo = ntt_kernel.GeoScale
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n = 1 << 27
+    w = ntt_core.forward_plan(n).root
+    n1, n2, ut, vt = ntt_kernel._device_uv(n, w, None, fld, dev)
+    x = rand_mont(fld, (n2, n1 // 8))
+    kw = dict(m=n1, pre=geo(5, n, col_stride=n2, row_stride=1), uv=(ut, vt))
+    w1, w2 = pow(w, n2, fld.p), pow(w, n1, fld.p)
+    _compare("limb_dft_rows", f"fused pre+uv batch={n2} valid={n1 // 8} m={n1}",
+             lambda: limb_dft.limb_dft_rows(x, w1, fld, **kw),
+             lambda: limb_dft.limb_dft_rows_plain(x, w1, fld, **kw),
+             limb_rows_bound(n2, n1 // 8, n1, pre=True, uv=True), iters=10)
+    del x
+    x = rand_mont(fld, (n1, n2))
+    post = geo(pow(5, fld.p - 2, fld.p), n, col_stride=n1, row_stride=1)
+    _compare("limb_dft_rows", f"fused post batch={n1} m={n2}",
+             lambda: limb_dft.limb_dft_rows(x, w2, fld, post=post),
+             lambda: limb_dft.limb_dft_rows_plain(x, w2, fld, post=post),
+             limb_rows_bound(n1, n2, n2, post=True), iters=10)
+    del x
+    plan = ntt_core.inverse_plan(1 << 16)
+    wi = ntt_core._effective_root(plan)
+    _, _, ut16, vt16 = ntt_kernel._device_uv(1 << 16, wi, plan.scale_mont, fld, dev)
+    x = rand_mont(fld, (256, 256))
+    _compare("limb_dft_rows", "fused uv(1/n) batch=256 m=256",
+             lambda: limb_dft.limb_dft_rows(x, pow(wi, 256, fld.p), fld, uv=(ut16, vt16)),
+             lambda: limb_dft.limb_dft_rows_plain(x, pow(wi, 256, fld.p), fld, uv=(ut16, vt16)),
+             limb_rows_bound(256, 256, 256, uv=True))
+    _compare("limb_dft_rows", "fused 1/n batch=256 m=256",
+             lambda: limb_dft.limb_dft_rows(x, pow(wi, 256, fld.p), fld, scale=plan.scale_mont),
+             lambda: limb_dft.limb_dft_rows_plain(x, pow(wi, 256, fld.p), fld, scale=plan.scale_mont),
+             limb_rows_bound(256, 256, 256, scale=True))
+    del x, ut, vt
+
+    # composition: the three AIRs at 2^13 and both primes, then square-chain at
+    # 2^24; no one PyTorch call computes it: no library time
+    def comp_bound(cfg, bsz):
+        mul, add, sub = pr.composition_program(cfg).field_ops
+        d = cfg.eval_domain
+        return bound(bsz * d * (4 + 8) + 4 * cfg.n_constraints * d,
+                     bsz * d * (mul * FP_MUL + add * FP_ADD + sub * FP_SUB + 5))
+
+    def comp_case(cfg, bsz):
+        f = rand_mont(cfg.field, (bsz, cfg.eval_domain))
+        alphas = rand_mont(cfg.field, (bsz, cfg.n_constraints))
+        return f, alphas
+
+    for name, air in AIRS.items():
+        for fld in (fp.FIELD101, fp.FIELD_ALT):
+            cfg = StarkConfig(field=fld, air=air, trace_len=1023, boundary_first=1, boundary_last=1,
+                              coset_offset=5 if fld is fp.FIELD101 else 31)
+            for bsz in (1, 3):
+                f, alphas = comp_case(cfg, bsz)
+                cp, res = pr.composition_eval_res(cfg, f, alphas)
+                want = pr.composition_eval_plain(cfg, f, alphas)
+                _all_equal("composition", f"{name} 2^13 B={bsz} p={fld.p}", [cp, res],
+                           [want, fp.from_mont_f(fld, want)])
+        say(f"phase3 composition {name} d=2^13 B in (1, 3) both primes equal to "
+            "composition_eval_plain, tol=0")
+    cfg = StarkConfig(trace_len=(1 << BIG_TRACE_BITS) - 1, boundary_last=1, air=SQUARE_CHAIN)
+    for bsz in (3, 1):
+        f, alphas = comp_case(cfg, bsz)
+        cp, res = pr.composition_eval_res(cfg, f, alphas)
+        want = pr.composition_eval_plain(cfg, f, alphas)
+        _all_equal("composition", f"square-chain 2^24 B={bsz}", [cp, res],
+                   [want, fp.from_mont_f(cfg.field, want)])
+        del cp, res, want
+        if bsz == 1:
+            # both outputs are checked above; the timed calls return the residues
+            rows["composition"] = _compare(
+                "composition", "square-chain d=2^24 B=1",
+                lambda: pr.composition_eval_res(cfg, f, alphas)[1],
+                lambda: fp.from_mont_f(cfg.field, pr.composition_eval_plain(cfg, f, alphas)),
+                comp_bound(cfg, 1),
+            )
+        del f, alphas
+    say("phase3 composition square-chain d=2^24 B in (1, 3) equal to composition_eval_plain, tol=0")
+    pr.composition_constants.cache_clear()
+    torch.cuda.empty_cache()
+    return rows
+
+
 OWN_KERNELS = ("ntt_rows_kernel", "transpose_kernel", "ntt_rows_pease_kernel", "sha256_leaf",
-               "sha256_node", "fs_chain_kernel", "fri_fold_kernel")
+               "sha256_node", "fs_chain_kernel", "fri_fold_kernel", "limb_dft_rows_kernel",
+               "composition_kernel")
 
 
 def phase3_lde() -> None:
-    """The LDE entry points on the card, timed; the 2^25 `coset_ntt` under
-    torch.profiler launches none but the port's own kernels."""
+    """The LDE entry points on the card, timed; the 2^25 and 2^27 `coset_ntt`
+    under torch.profiler launch none but the port's own kernels."""
     from collections import Counter
 
     from torch.autograd import DeviceType
@@ -516,12 +710,12 @@ def phase3_lde() -> None:
     def rand_mont(n):
         return fp.from_host(fld.host_to_mont(rng.integers(0, fld.p, n, dtype=np.uint64)), "cuda")
 
-    for log_n in (13, 24, 25):
+    for log_n in (13, 24, 25, 27):
         n = 1 << log_n
         coeffs = rand_mont(n // 8)
-        ms = cuda_ms(lambda: ntt_core.coset_ntt(coeffs, n, 5), 5 if log_n == 25 else 20)
+        ms = cuda_ms(lambda: ntt_core.coset_ntt(coeffs, n, 5), 5 if log_n >= 25 else 20)
         say(f"phase3 coset_ntt n=2^{log_n} coeffs=2^{log_n - 3} ms={ms:.4f}")
-        if log_n == 25:
+        if log_n >= 25:
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 ntt_core.coset_ntt(coeffs, n, 5)
                 torch.cuda.synchronize()
@@ -531,10 +725,14 @@ def phase3_lde() -> None:
             foreign = [k for k in names
                        if not any(own in k for own in OWN_KERNELS)
                        and not k.lower().startswith(("memset", "memcpy"))]
-            say(f"phase3 coset_ntt n=2^25 device kernels={json.dumps(dict(names))}")
+            say(f"phase3 coset_ntt n=2^{log_n} device kernels={json.dumps(dict(names))}")
             if foreign:
-                raise AssertionError(f"coset_ntt at 2^25 launched foreign kernels: {foreign}")
+                raise AssertionError(f"coset_ntt at 2^{log_n} launched foreign kernels: {foreign}")
+            own = "limb_dft_rows_kernel" if log_n > 26 else "ntt_rows_kernel"
+            if not any(own in k for k in names):
+                raise AssertionError(f"coset_ntt at 2^{log_n} did not launch {own}")
         del coeffs
+        torch.cuda.empty_cache()
     for log_n in (10, 22):
         n = 1 << log_n
         evals = rand_mont(n)
@@ -559,6 +757,7 @@ def phase4_stark101():
     verify(proof, STARK101)
     verify_native(proof, STARK101)
     require_launched(counts, (*ROW_KERNELS, "fri_fold"), "stark-101")
+    require_one_composition(counts, "stark-101")
     warm = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -621,13 +820,14 @@ def phase6_big():
     cold = time.perf_counter() - t0
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    if len(proof.data) != BIG_PROOF_LEN:
+    if len(proof.data) != BIG_PROOF_LEN or expected_proof_len(cfg) != BIG_PROOF_LEN:
         raise AssertionError(f"2^24 proof has {len(proof.data)} bytes, want {BIG_PROOF_LEN}")
     t0 = time.perf_counter()
     verify(proof, cfg)
     verify_s = time.perf_counter() - t0
     verify_native(proof, cfg)
     require_launched(counts, (*DIT_KERNELS, "fri_fold"), "2^24")
+    require_one_composition(counts, "2^24")
     warm_timings = {}
     t0 = time.perf_counter()
     again = prove(cfg, BIG_SECRET, device="cuda", timings=warm_timings, fused=False)
@@ -703,7 +903,7 @@ def phase7_entry_points(tmp_dir: str) -> dict:
     if cfg.boundary_last != int(boundary):
         raise AssertionError("prove_big and the CLI derived different public outputs")
     verify_native(cli_proof, cfg)
-    if len(proof.data) != HUGE_PROOF_LEN:
+    if len(proof.data) != HUGE_PROOF_LEN or expected_proof_len(cfg) != HUGE_PROOF_LEN:
         raise AssertionError(f"2^25 proof has {len(proof.data)} bytes, want {HUGE_PROOF_LEN}")
     if proof.to_bytes() != cli_bytes:
         raise AssertionError("2^25: the DIT-route proof differs from the Pease-route CLI proof")
@@ -785,12 +985,51 @@ def _device_busy(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = [e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not spans:
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
         raise AssertionError("torch.profiler recorded no device activity")
+    spans = [e.time_range.elapsed_us() for e in events]
+    own = [e.time_range.elapsed_us() for e in events if any(k in e.name for k in OWN_KERNELS)]
     busy = sum(spans) / 1e6
     return dict(wall_s=round(wall, 5), device_busy_s=round(busy, 5), device_spans=len(spans),
-                idle_share=round(1 - busy / wall, 4))
+                idle_share=round(1 - busy / wall, 4), own_kernel_spans=len(own),
+                own_kernel_busy_s=round(sum(own) / 1e6, 6), plain_torch_spans=len(spans) - len(own),
+                plain_torch_busy_s=round((sum(spans) - sum(own)) / 1e6, 6))
+
+
+def _plain_loops(cfg, secret: int) -> dict:
+    """The plain-torch loops still on the prove path, each alone under
+    torch.profiler on this statement's tensors: its launches (device spans
+    that are not the port's own kernels, copies included) and their summed
+    device milliseconds. The interpolation's rank-1 fix is `interpolate_trace`
+    without its INTT kernel; the openings are gathered and packed as the fused
+    core does it."""
+    from zkstark_tpu_torch import ntt
+    from zkstark_tpu_torch.field import fp
+    from zkstark_tpu_torch.protocol import air, openings
+    from zkstark_tpu_torch.protocol import prover as pr
+
+    fld = cfg.field
+    art = pr.ProverArtifacts()
+    pr.prove(cfg, secret, device="cuda", artifacts=art, fused=False)
+    trace = pr.trace_to_device(cfg, secret, torch.device("cuda"))
+    coeffs = air.interpolate_trace(trace, cfg.trace_domain, fld)
+    f_eval = ntt.coset_ntt(coeffs, cfg.eval_domain, cfg.coset_offset, fld)
+    idx = fp.from_host(np.asarray(art.query_indices, dtype=np.uint32), "cuda")
+    levels = [t.levels for t in art.layer_trees]
+    groups = {
+        "interpolate_rank1_fix": lambda: air.interpolate_trace(trace, cfg.trace_domain, fld),
+        "from_mont_f_eval": lambda: fp.from_mont_f(fld, f_eval),
+        "opening_gathers": lambda: openings.pack_tree(openings.sparse_openings_device(
+            cfg, art.f_res, art.f_tree.levels, art.layer_res, levels, idx)),
+    }
+    out = {}
+    for name, fn in groups.items():
+        fn()
+        busy = _device_busy(fn)
+        out[name] = dict(launches=busy["plain_torch_spans"],
+                         device_ms=round(busy["plain_torch_busy_s"] * 1e3, 4))
+    return out
 
 
 def _warm_min(fn, want, repeats: int, what: str) -> float:
@@ -822,6 +1061,7 @@ def phase9_fused_solo():
     verify(proof, STARK101)
     verify_native(proof, STARK101)
     require_launched(counts, (*ROW_KERNELS, *FUSED_KERNELS), "fused stark-101")
+    require_one_composition(counts, "fused stark-101")
     if _guarded_core(STARK101, STARK101_SECRET) != proof:
         raise AssertionError("fused stark-101 under the sync debug mode differs")
     fused_s = _warm_min(lambda: prove(STARK101, STARK101_SECRET, device="cuda"), proof, 5, "fused")
@@ -837,6 +1077,7 @@ def phase9_fused_solo():
         f"spans={json.dumps({k: round(v, 5) for k, v in timings.items()})} "
         f"profiled={json.dumps(busy)}"
     )
+    say(f"phase9 stark101 plain_loops={json.dumps(_plain_loops(STARK101, STARK101_SECRET))}")
 
 
 def phase10_batch(cfg16, proof16):
@@ -852,6 +1093,7 @@ def phase10_batch(cfg16, proof16):
         if len(proofs) != bsz or any(p != golden for p in proofs):
             raise AssertionError(f"prove_batch B={bsz}: a proof is not the golden one")
         require_launched(counts, (*ROW_KERNELS, *FUSED_KERNELS), f"prove_batch B={bsz}")
+        require_one_composition(counts, f"prove_batch B={bsz}")
         best = _warm_min(lambda: prove_batch(STARK101, secrets, device="cuda"), proofs, 3,
                          f"prove_batch B={bsz}")
         say(f"phase10 prove_batch stark101 B={bsz} all golden batch_s_min={best:.4f} "
@@ -924,6 +1166,66 @@ def phase11_pipelined(cfg24, proof24, host_synced_warm_s: float) -> dict:
     )
     say(f"phase11 2^24 fused spans={json.dumps({k: round(v, 4) for k, v in spans.items()})} "
         f"profiled={json.dumps(busy)}")
+    say(f"phase11 2^24 plain_loops={json.dumps(_plain_loops(cfg24, BIG_SECRET))}")
+    return counts
+
+
+def phase12_past_2e26() -> dict:
+    """The 2^27-point statement through `tools.prove_big` (host-synced) and
+    once through the fused `prove()`; returns the launch counts of the
+    `prove_big` run, the big-domain slice's main-path run."""
+    from zkstark_tpu_torch import ops, prove, verify
+    from zkstark_tpu_torch.native import verify_native
+    from zkstark_tpu_torch.ops import ntt_kernel
+    from zkstark_tpu_torch.protocol import prover as pr
+    from zkstark_tpu_torch.tools import prove_big
+
+    # the constants of the earlier statements (128 and 256 MB) and the
+    # allocator's cached blocks go before the largest statement starts
+    pr.composition_constants.cache_clear()
+    ntt_kernel._device_uv.cache_clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    proof, cfg, rec = prove_big.run(GIANT_TRACE_BITS, repeats=1, device="cuda",
+                                    emit=lambda r: say("phase12 prove_big", json.dumps(r)))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want_len = expected_proof_len(cfg)
+    if len(proof.data) != want_len:
+        raise AssertionError(f"2^27 proof has {len(proof.data)} bytes, the layout gives {want_len}")
+    verify_native(proof, cfg)  # prove_big.run has called the port's verifier
+    require_launched(counts, ("sha256_leaf", "sha256_node", "ntt_rows", "transpose", "fri_fold",
+                              "limb_dft_rows", "composition"), "prove_big 2^27")
+    if counts["composition"] != 2:  # the cold prove and one warm prove
+        raise AssertionError(f"prove_big 2^27: {counts['composition']} composition launches, want 2")
+    warm = {}
+    if prove(cfg, prove_big.SECRET, device="cuda", timings=warm, fused=False) != proof:
+        raise AssertionError("2^27: the proof changed between runs")
+    say(f"phase12 2^27 host-synced warm_phases={json.dumps({k: round(v, 4) for k, v in warm.items()})}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    spans = {}
+    t0 = time.perf_counter()
+    fused = prove(cfg, prove_big.SECRET, device="cuda", timings=spans)
+    fused_s = time.perf_counter() - t0
+    fused_counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if fused != proof:
+        raise AssertionError("2^27: the fused proof differs from prove_big's")
+    verify(fused, cfg)
+    verify_native(fused, cfg)
+    require_launched(fused_counts, ("limb_dft_rows", "composition", *FUSED_KERNELS), "fused 2^27")
+    require_one_composition(fused_counts, "fused 2^27")
+    say(
+        f"phase12 square-chain 2^27 trace_len={cfg.trace_len} fri_rounds={cfg.fri_rounds} "
+        f"bytes={len(proof.data)} ==layout state={proof.state.hex()} prove_big==fused verify=ok "
+        f"native=ok prove_big_warm_s={rec['value']} prove_big_max_memory_allocated="
+        f"{rec['max_memory_allocated']} fused_s={fused_s:.3f} fused_max_memory_allocated={peak} "
+        f"launches={json.dumps(counts)} fused_launches={json.dumps(fused_counts)}"
+    )
+    say(f"phase12 2^27 fused spans={json.dumps({k: round(v, 4) for k, v in spans.items()})}")
     return counts
 
 
@@ -946,10 +1248,15 @@ def main():
     phase9_fused_solo()
     phase10_batch(cfg16, proof16)
     fused_launches = phase11_pipelined(cfg24, proof24, warm24)
+    del proof24
+    giant_launches = phase12_past_2e26()
     # the launches of a kernel are those of the main-path run that first drove
-    # it: the 2^25 entry points (phase 7), the 2^24 pipelined stream (phase 11)
+    # it: the 2^25 entry points (phase 7), the 2^24 pipelined stream (phase 11),
+    # the 2^27 prove_big run (phase 12)
     for name in FUSED_KERNELS:
         launches[name] = fused_launches[name]
+    for name in ("limb_dft_rows", "composition"):
+        launches[name] = giant_launches[name]
     kernels = [
         {
             "name": name,
@@ -964,6 +1271,7 @@ def main():
             "bound_by": rows[name]["bound_by"],
             "library_ms": rows[name]["library_ms"],
             "launches_one_fetch_2e24_stream": fused_launches[name],
+            "launches_prove_big_2e27": giant_launches[name],
         }
         for name in SRC
     ]

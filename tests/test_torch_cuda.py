@@ -12,7 +12,10 @@ transposes with a missing tail, the second prime, both four-step routes, the
 LDE entry points against the CPU, the Fiat-Shamir chain kernel at every entry
 point and ragged chain counts, the FRI fold at every layer size from 2 words
 up and ragged proof counts, the fused, batched and pipelined provers against
-the host-synced one, and the wrappers' input checks.
+the host-synced one, the limb-matrix row transform at every row length
+128..16384 with each fused option and the four-step on its route, the
+composition kernel for the three AIRs and a program that reads x, and the
+wrappers' input checks.
 """
 
 import numpy as np
@@ -21,7 +24,14 @@ import torch
 
 from zkstark_tpu_torch.field import fp
 from zkstark_tpu_torch.ntt import core as ntt_core
-from zkstark_tpu_torch.ops import fri_fold, fs_chain, ntt_kernel, sha256_kernel
+from zkstark_tpu_torch.ops import (
+    composition,
+    fri_fold,
+    fs_chain,
+    limb_dft,
+    ntt_kernel,
+    sha256_kernel,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -384,3 +394,200 @@ def test_wrappers_reject_bad_input(dev):
         fri_fold.fri_fold(fp.from_host(_u32((2, 12), 1), dev), 1, 1, 1)
     with pytest.raises(ValueError):
         fri_fold.fri_fold(fp.from_host(_u32((2, 16), 1), dev), fp.from_host(_u32(3, 1), dev), 1, 1)
+
+
+@FIELDS
+@pytest.mark.parametrize("batch", [1, 3, 130])
+@pytest.mark.parametrize("log_m", range(7, 15))
+def test_limb_dft_rows_every_length(dev, field, log_m, batch):
+    """Equal to its plain version and, up to 8192, to `ntt_rows`."""
+    m = 1 << log_m
+    x = _rand_mont(field, (batch, m), log_m, dev)
+    w = ntt_core.forward_plan(m, field).root
+    got = limb_dft.limb_dft_rows(x, w, field)
+    _eq(got, limb_dft.limb_dft_rows_plain(x, w, field))
+    if m <= ntt_kernel.MAX_ROW:
+        _eq(got, ntt_kernel.ntt_rows(x, w, field))
+
+
+@FIELDS
+@pytest.mark.parametrize("option", ["short", "pre", "pre_rows", "uv", "post", "scale", "all"])
+@pytest.mark.parametrize("log_m", range(7, 15))
+def test_limb_dft_rows_fused_options(dev, field, log_m, option):
+    """The `ntt_rows` contract on the limb route: each fused option alone and
+    all together, on a short valid prefix wherever a pre-scale is on."""
+    m = 1 << log_m
+    for batch in (3, 6):
+        opts = _fused_options(field, batch, m, dev, 31 * log_m + batch)
+        if option == "all":
+            kw = {k: v for name in ("pre_rows", "uv", "post", "scale") for k, v in opts[name].items()}
+        else:
+            kw = opts.get(option, {})
+        short = option in ("short", "pre", "pre_rows", "all")
+        valid = max(1, m // 8 + (log_m % 2)) if short else m  # odd lengths take 4-byte loads
+        x = _rand_mont(field, (batch, valid), log_m, dev)
+        w = ntt_core.forward_plan(m, field).root
+        got = limb_dft.limb_dft_rows(x, w, field, m=m, **kw)
+        _eq(got, limb_dft.limb_dft_rows_plain(x, w, field, m=m, **kw))
+
+
+def test_limb_dft_rows_edge_words_and_views(dev):
+    """Rows of p − 1 (the largest limb sums), words that are not reduced
+    below p, a small prime, and a block that does not start on 16 bytes."""
+    field, m = fp.FIELD101, 16384
+    w = ntt_core.forward_plan(m, field).root
+    x = fp.from_host(np.full((2, m), field.p - 1, dtype=np.uint32), dev)
+    _eq(limb_dft.limb_dft_rows(x, w, field), limb_dft.limb_dft_rows_plain(x, w, field))
+    raw = fp.from_host(_u32((3, m), 4) | np.uint32(0xFF0000FF), dev)
+    _eq(limb_dft.limb_dft_rows(raw, w, field), limb_dft.limb_dft_rows_plain(raw, w, field))
+    small = fp.field_for(786433)
+    xs = _rand_mont(small, (5, 256), 6, dev)
+    ws = small.subgroup_generator(256)
+    _eq(limb_dft.limb_dft_rows(xs, ws, small), limb_dft.limb_dft_rows_plain(xs.cpu(), ws, small))
+    view = _rand_mont(field, 4 * 1024 + 1, 5, dev)[1:].reshape(4, 1024)
+    assert view.data_ptr() % 16
+    w1k = ntt_core.forward_plan(1024, field).root
+    _eq(limb_dft.limb_dft_rows(view, w1k, field), ntt_kernel.ntt_rows(view, w1k, field))
+
+
+@pytest.mark.parametrize("log_n", [14, 15, 20])
+def test_fourstep_limb_route_on_card(dev, monkeypatch, log_n):
+    """ZKSTARK_MXU=on: both passes launch `limb_dft_rows` (and the three
+    transposes), `ntt_rows` none; coset_ntt, intt and coset_intt equal the
+    default route; ZKSTARK_PEASE=on beside it changes nothing."""
+    field, n = fp.FIELD101, 1 << log_n
+    coeffs = _rand_mont(field, n // 8, log_n, dev)
+    monkeypatch.delenv("ZKSTARK_MXU", raising=False)
+    want = ntt_core.coset_ntt(coeffs, n, 5, field)
+    want_back = ntt_core.coset_intt(want, 5, field)
+    monkeypatch.setenv("ZKSTARK_MXU", "on")
+    monkeypatch.setenv("ZKSTARK_PEASE", "on")
+    before = limb_dft.limb_launches, ntt_kernel.ntt_launches, ntt_kernel.pease_launches
+    got = ntt_core.coset_ntt(coeffs, n, 5, field)
+    assert limb_dft.limb_launches == before[0] + 2
+    assert (ntt_kernel.ntt_launches, ntt_kernel.pease_launches) == before[1:]
+    _eq(got, want)
+    _eq(ntt_core.coset_intt(got, 5, field), want_back)
+    plan = ntt_core.inverse_plan(n, field)
+    monkeypatch.delenv("ZKSTARK_MXU")
+    monkeypatch.delenv("ZKSTARK_PEASE")
+    want_intt = ntt_core.intt(want, plan)
+    monkeypatch.setenv("ZKSTARK_MXU", "on")
+    _eq(ntt_core.intt(got, plan), want_intt)
+
+
+def _composition_case(field, air_name, blowup, bsz, seed, dev):
+    from zkstark_tpu_torch.protocol.air import AIRS
+    from zkstark_tpu_torch.protocol.config import StarkConfig
+
+    cfg = StarkConfig(field=field, air=AIRS[air_name], trace_len=1023, blowup=blowup,
+                      boundary_first=1, boundary_last=1,
+                      coset_offset=5 if field is fp.FIELD101 else 31)
+    f = _rand_mont(field, (bsz, cfg.eval_domain), seed, dev)
+    alphas = _rand_mont(field, (bsz, cfg.n_constraints), seed + 1, dev)
+    return cfg, f, alphas
+
+
+@FIELDS
+@pytest.mark.parametrize("bsz", [1, 3])
+@pytest.mark.parametrize("blowup", [2, 4, 8, 16])
+@pytest.mark.parametrize("air_name", ["fibonacci-sq", "fibonacci", "square-chain"])
+def test_composition_kernel(dev, field, air_name, blowup, bsz):
+    """One launch a batch; both outputs equal the AIR's own closures
+    (`composition_eval_plain`) and the program's plain interpreter. Blowup 2
+    takes the kernel's one-point-a-thread instance."""
+    from zkstark_tpu_torch.protocol import prover as pr
+
+    cfg, f, alphas = _composition_case(field, air_name, blowup, bsz, blowup + bsz, dev)
+    before = composition.composition_launches
+    cp, res = pr.composition_eval_res(cfg, f, alphas)
+    assert composition.composition_launches == before + 1
+    want = pr.composition_eval_plain(cfg, f, alphas)
+    _eq(cp, want)
+    _eq(res, fp.from_mont_f(field, want))
+    plain = composition.composition_plain(
+        f, pr.composition_constants(cfg, f.device), alphas, pr.composition_program(cfg), field)
+    _eq(cp, plain[0])
+    _eq(res, plain[1])
+    # the host-synced prover's call: one proof, the alphas as Python ints
+    ints = [int(a) for a in fp.to_host(alphas)[0]]
+    cp0, res0 = pr.composition_eval_res(cfg, fp.as_u32(fp.as_i32(f)[0].contiguous()), ints)
+    np.testing.assert_array_equal(fp.to_host(cp0), fp.to_host(cp)[0])
+    np.testing.assert_array_equal(fp.to_host(res0), fp.to_host(res)[0])
+
+
+def test_composition_kernel_reads_x_and_unaligned_views(dev):
+    """A program with OP_X and OP_CONST against the plain interpreter, and an
+    evaluation vector that does not start on 16 bytes."""
+    from zkstark_tpu_torch.protocol import prover as pr
+
+    field = fp.FIELD101
+    cfg, f, alphas = _composition_case(field, "square-chain", 8, 2, 3, dev)
+    base = pr.composition_program(cfg)
+    ops = [(composition.OP_X, 0), (composition.OP_F, 0), (composition.OP_MUL, 0),
+           (composition.OP_X, 0), (composition.OP_CONST, 7), (composition.OP_ADD, 0),
+           (composition.OP_MUL, 0), (composition.OP_F, 1), (composition.OP_SUB, 0)]
+    prog = composition.encode([("transition", ops), ("boundary", 11)], cfg.air.shifts, cfg.blowup,
+                              cfg.eval_domain, base.generator, base.offset, field)
+    inv = pr.composition_constants(cfg, f.device)
+    got = composition.composition(f, inv, alphas, prog, field)
+    want = composition.composition_plain(f, inv, alphas, prog, field)
+    _eq(got[0], want[0])
+    _eq(got[1], want[1])
+    d = cfg.eval_domain
+    view = _rand_mont(field, d + 1, 8, dev)[1:]
+    assert view.data_ptr() % 16
+    got = composition.composition(view, inv, alphas[:1], base, field)
+    want = composition.composition_plain(view, inv, alphas[:1], base, field)
+    _eq(got[0], want[0])
+    _eq(got[1], want[1])
+
+
+def test_composition_is_one_launch_a_proof(dev):
+    """A fused prove launches the composition kernel once and a batch of
+    five once; under ZKSTARK_MXU=on the proof at a four-step domain keeps its
+    bytes."""
+    from zkstark_tpu_torch.protocol import prove
+    from zkstark_tpu_torch.protocol.batch import prove_batch
+
+    cfg = _small_cfg(2047, "square-chain", secret=271828)
+    want = prove(cfg, 271828, device="cpu", fused=False)
+    before = composition.composition_launches
+    assert prove(cfg, 271828, device=dev) == want
+    assert composition.composition_launches == before + 1
+    assert prove(cfg, 271828, device=dev, fused=False) == want
+    assert composition.composition_launches == before + 2
+    assert prove_batch(cfg, [271828] * 5, device=dev) == [want] * 5
+    assert composition.composition_launches == before + 3
+
+
+def test_limb_route_proof_on_card(dev, monkeypatch):
+    from zkstark_tpu_torch.protocol import prove
+
+    cfg = _small_cfg(2047, "square-chain", secret=271828)
+    want = prove(cfg, 271828, device="cpu", fused=False)
+    monkeypatch.setenv("ZKSTARK_MXU", "on")
+    before = limb_dft.limb_launches
+    assert prove(cfg, 271828, device=dev) == want
+    assert limb_dft.limb_launches == before + 2  # the 2^14 LDE's two passes
+
+
+def test_new_wrappers_reject_bad_input(dev):
+    with pytest.raises(ValueError):
+        limb_dft.limb_dft_rows(fp.from_host(_u32((1, 64), 3), dev), 1)
+    with pytest.raises(ValueError):
+        limb_dft.limb_dft_rows(fp.from_host(_u32((1, 32768), 3), dev), 1)
+    with pytest.raises(ValueError):
+        limb_dft.limb_dft_rows(fp.from_host(_u32((4, 128), 2), dev).t(), 1)
+    with pytest.raises(ValueError, match="2\\^28"):
+        ntt_kernel.ntt_fourstep(fp.from_host(_u32(8, 1), dev), 1 << 29, 1)
+    from zkstark_tpu_torch.protocol import prover as pr
+
+    cfg, f, alphas = _composition_case(fp.FIELD101, "square-chain", 8, 1, 3, dev)
+    inv, prog = pr.composition_constants(cfg, f.device), pr.composition_program(cfg)
+    with pytest.raises(ValueError):
+        composition.composition(f, inv.cpu(), alphas, prog)
+    with pytest.raises(ValueError):
+        composition.composition(f, inv, alphas.cpu(), prog)
+    with pytest.raises(TypeError):
+        composition.composition(fp.as_i32(f), inv, alphas, prog)

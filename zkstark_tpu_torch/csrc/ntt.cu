@@ -45,17 +45,9 @@
 #include <cuda_runtime.h>
 
 #include "fp.cuh"
+#include "geo.cuh"
 
 namespace {
-
-// element (row r, column i) is multiplied by a[e >> shift]·b[e & mask],
-// e = i·es + r·rs; a == nullptr turns it off
-struct Geo {
-  const uint32_t* a;
-  const uint32_t* b;
-  int shift;
-  uint32_t es, rs;
-};
 
 struct RowsArgs {
   const uint32_t* x;  // (batch, valid)
@@ -84,11 +76,6 @@ __host__ __device__ constexpr int block_threads(int log_m) {
 __host__ __device__ constexpr int buffer_words(int log_m) { return (1 << log_m) + ((1 << log_m) >> 5); }
 
 __device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
-
-__device__ __forceinline__ uint32_t geo_factor(const Geo& g, uint32_t r, uint32_t i, Fp f) {
-  const uint32_t e = i * g.es + r * g.rs;
-  return fp_mul_r(__ldg(g.a + (e >> g.shift)), __ldg(g.b + (e & ((1u << g.shift) - 1u))), f);
-}
 
 __device__ __forceinline__ void bfly(uint32_t& a, uint32_t& b, Fp f) {
   const uint32_t s = fp_add_r(a, b, f);

@@ -6,15 +6,17 @@ only on the size n, never on the device:
   * n < `ops.ntt_kernel.MIN_FOURSTEP` (2^14): one `ntt_rows` call, batch =
     the product of the leading axes;
   * larger n: the four-step factorization (`ops.ntt_kernel.ntt_fourstep`),
-    whose two passes of row transforms are `ntt_rows` calls as well; leading
-    axes are then transformed one flat vector at a time.
+    whose two passes of row transforms are `ntt_rows` calls as well (past
+    2^26, where a factor exceeds the longest `ntt_rows` row, and under
+    ``ZKSTARK_MXU=on``: `limb_dft.limb_dft_rows`; sizes above 2^28 raise);
+    leading axes are then transformed one flat vector at a time.
 
 Evaluation on the coset offset·⟨h⟩ (prover.rs:69) is a pointwise pre-scale by
 offset^j followed by a plain NTT. The pre-scale, the zero tail of a short
 coefficient vector, an INTT's 1/n and the inverse coset scale are all handed
 to `ntt_rows`, which applies them on load or on store: on a CUDA tensor
 `ntt`, `intt`, `coset_ntt` and `coset_intt` launch hand-written kernels only
-(csrc/ntt.cu, csrc/transpose.cu), on a CPU tensor the kernels' plain-torch
+(csrc/ntt.cu, csrc/transpose.cu, csrc/limb_dft.cu), on a CPU tensor the kernels' plain-torch
 twins, so the CPU tests run the same glue.
 """
 

@@ -4,7 +4,14 @@ Each wrapper launches its kernel for a CUDA tensor (or raises) and takes its
 plain-torch twin only for a tensor on the CPU. `launch_counts` reads the
 per-kernel launch counters and `reset_launch_counts` zeroes them."""
 
-from zkstark_tpu_torch.ops import fri_fold, fs_chain, ntt_kernel, sha256_kernel
+from zkstark_tpu_torch.ops import (
+    composition,
+    fri_fold,
+    fs_chain,
+    limb_dft,
+    ntt_kernel,
+    sha256_kernel,
+)
 
 
 def launch_counts() -> dict:
@@ -16,6 +23,8 @@ def launch_counts() -> dict:
         "ntt_rows_pease": ntt_kernel.pease_launches,
         "fs_chain": fs_chain.chain_launches,
         "fri_fold": fri_fold.fold_launches,
+        "limb_dft_rows": limb_dft.limb_launches,
+        "composition": composition.composition_launches,
     }
 
 
@@ -27,3 +36,5 @@ def reset_launch_counts() -> None:
     ntt_kernel.pease_launches = 0
     fs_chain.chain_launches = 0
     fri_fold.fold_launches = 0
+    limb_dft.limb_launches = 0
+    composition.composition_launches = 0

@@ -55,6 +55,19 @@ _SIGNATURES = {
     # (evals, beta, geo_a, geo_b, geo_shift, folded, res, batch, half, scale, inv2,
     #  p, p_inv_neg, stream)
     "zk_fri_fold": (_P, _P, _P, _P, _INT, _P, _P, _I64, _I64, _U32, _U32, _U32, _U32, _P),
+    # (x, out, af1, af2, tw, log_k1, log_k2, batch, valid,
+    #  pre: a, b, shift, col_stride, row_stride, post: the same five,
+    #  ut, vt, log2(vblk), scale, has_scale, p, p_inv_neg, stream)
+    "zk_limb_dft_rows": (
+        _P, _P, _P, _P, _P, _INT, _INT, _I64, _INT,
+        _P, _P, _INT, _U32, _U32, _P, _P, _INT, _U32, _U32,
+        _P, _P, _INT, _U32, _INT, _U32, _U32, _P,
+    ),
+    # (f_eval, inv_dens, alphas, program, program_words, shifts_by_4, geo_a, geo_b,
+    #  geo_shift, offset, cp_eval, cp_res, batch, d, p, p_inv_neg, stream)
+    "zk_composition": (
+        _P, _P, _P, _P, _INT, _INT, _P, _P, _INT, _U32, _P, _P, _I64, _I64, _U32, _U32, _P,
+    ),
     # (a, b, out, n, p, p_inv_neg, stream)
     "zk_fp_check": (_P, _P, _P, _I64, _U32, _U32, _P),
 }

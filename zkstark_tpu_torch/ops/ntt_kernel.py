@@ -48,6 +48,13 @@ without a strided pass: the columns of U.T and V.T are permuted by br1 (host
 constants), and the transposes of steps 3 and 5 become row gathers of the
 transposed views.
 
+Past 2^26 points n1 exceeds `MAX_ROW`, and both passes run
+`limb_dft.limb_dft_rows` instead (CUDA kernel H, ``csrc/limb_dft.cu``: the
+limb-matrix DFT on the tensor cores, rows up to 16384), which takes the
+contract of `ntt_rows`, so steps 1 to 5 stay as they are, up to 2^28
+(`fourstep_supported`). ``ZKSTARK_MXU=on`` (the JAX package's switch) takes
+that route wherever both factors are at least 128.
+
 Outputs equal the radix-2 transform exactly (pure field identities).
 """
 
@@ -67,6 +74,7 @@ from zkstark_tpu_torch.ops import _build
 
 MAX_ROW = 8192  # longest row one block transforms
 MIN_FOURSTEP = 1 << 14  # flat transforms from this size take the four-step glue
+MAX_FOURSTEP = 1 << 28  # the largest four-step size: both factors 16384, the longest limb-DFT row
 _VBLK = 128  # width of the V factor of the four-step twiddle (capped at n2)
 
 ntt_launches = 0  # launches of the CUDA kernel, counted by ntt_rows
@@ -77,7 +85,9 @@ pease_launches = 0  # launches of the Pease kernel, counted by ntt_rows_pease
 def pease_enabled() -> bool:
     """The four-step route, read at each call as the JAX package reads it
     (``zkstark_tpu/ops/ntt_kernel.py`` ``pease_enabled``): ``ZKSTARK_PEASE=on``
-    takes `ntt_rows_pease`, anything else `ntt_rows`."""
+    takes `ntt_rows_pease`, anything else `ntt_rows`. The switch does not
+    apply where the limb-matrix route carries the transform (a factor above
+    `MAX_ROW`, or ``ZKSTARK_MXU=on``): it is then ignored, not refused."""
     return os.environ.get("ZKSTARK_PEASE", "off") == "on"
 
 
@@ -170,34 +180,66 @@ def _geo_factor_plain(geo: GeoScale, rows: int, cols: int, field: Field, device)
     return fp.mont_mul_w(field, fp.wide(a)[e >> s], fp.wide(b)[e & ((1 << s) - 1)])
 
 
-def _check_rows_args(x, m, pre, post, uv):
-    _build.require(x, "ntt_rows", 2)
+def _check_rows_args(x, m, pre, post, uv, what="ntt_rows", shortest=2, longest=MAX_ROW):
+    """The checks of the row-transform contract (`ntt_rows`, and
+    `limb_dft.limb_dft_rows` with its own bounds on the row length)."""
+    _build.require(x, what, 2)
     batch, valid = x.shape
     m = valid if m is None else m
-    if m < 2 or m > MAX_ROW or m & (m - 1):
-        raise ValueError(f"ntt_rows: row length {m} is not a power of two in [2, {MAX_ROW}]")
+    if m < shortest or m > longest or m & (m - 1):
+        raise ValueError(
+            f"{what}: row length {m} is not a power of two in [{shortest}, {longest}]"
+        )
     if valid < 1 or valid > m:
-        raise ValueError(f"ntt_rows: rows of {valid} words do not fit a length-{m} transform")
+        raise ValueError(f"{what}: rows of {valid} words do not fit a length-{m} transform")
     for geo in (pre, post):
         if geo is None:
             continue
         size = geo.size
         last = (m - 1) * geo.col_stride + (batch - 1) * geo.row_stride
         if size < 1 or size & (size - 1) or size > 1 << 31 or (batch and last >= size):
-            raise ValueError(f"ntt_rows: {geo} does not cover a ({batch}, {m}) block")
+            raise ValueError(f"{what}: {geo} does not cover a ({batch}, {m}) block")
     if uv is not None:
         ut, vt = uv
         for t in (ut, vt):
-            _build.require(t, "ntt_rows twiddle", 2)
+            _build.require(t, f"{what} twiddle", 2)
             if t.device != x.device or t.shape[1] != m:
-                raise ValueError("ntt_rows: twiddle tables must be (·, m) on the input's device")
+                raise ValueError(f"{what}: twiddle tables must be (·, m) on the input's device")
         vblk = vt.shape[0]
         if vblk < 1 or vblk & (vblk - 1) or ut.shape[0] * vblk != batch:
             raise ValueError(
-                f"ntt_rows: twiddle tables {tuple(ut.shape)}, {tuple(vt.shape)} do not "
+                f"{what}: twiddle tables {tuple(ut.shape)}, {tuple(vt.shape)} do not "
                 f"cover {batch} rows"
             )
     return batch, valid, m
+
+
+def load_plain(x: torch.Tensor, m: int, pre: GeoScale | None, field: Field) -> torch.Tensor:
+    """What a row kernel does on load, as whole-tensor ops: the pre-scale
+    and the zero tail. x (batch, valid) uint32 → (batch, m) int64."""
+    b, valid = x.shape
+    v = fp.wide(x)
+    if pre is not None:
+        v = fp.mont_mul_w(field, v, _geo_factor_plain(pre, b, valid, field, x.device))
+    if valid < m:
+        v = torch.cat([v, torch.zeros((b, m - valid), dtype=torch.int64, device=x.device)], dim=1)
+    return v
+
+
+def store_plain(v: torch.Tensor, post: GeoScale | None, uv, scale, field: Field) -> torch.Tensor:
+    """What a row kernel does on store: the U·V twiddle, the post-scale and
+    the scalar. v (batch, m) int64 → uint32."""
+    b, m = v.shape
+    if uv is not None:
+        uw, vw = fp.wide(uv[0]), fp.wide(uv[1])
+        v3 = v.reshape(uw.shape[0], vw.shape[0], m)
+        v3 = fp.mont_mul_w(field, fp.mont_mul_w(field, v3, uw[:, None, :]), vw[None])
+        v = v3.reshape(b, m)
+    if post is not None:
+        v = fp.mont_mul_w(field, v, _geo_factor_plain(post, b, m, field, v.device))
+    if scale is not None:
+        v = fp.mont_mul_w(field, v, scale)
+    return fp.narrow(v)
 
 
 def ntt_rows_plain(
@@ -216,11 +258,7 @@ def ntt_rows_plain(
     radix-2 DIT stages."""
     b, valid = x.shape
     m = valid if m is None else m
-    v = fp.wide(x)
-    if pre is not None:
-        v = fp.mont_mul_w(field, v, _geo_factor_plain(pre, b, valid, field, x.device))
-    if valid < m:
-        v = torch.cat([v, torch.zeros((b, m - valid), dtype=torch.int64, device=x.device)], dim=1)
+    v = load_plain(x, m, pre, field)
     br = torch.from_numpy(bit_reverse_indices(m).astype(np.int64)).to(x.device)
     v = v[:, br]
     tw_w = torch.from_numpy(stage_twiddles(m, w, field).astype(np.int64)).to(x.device)
@@ -232,16 +270,7 @@ def ntt_rows_plain(
         v = torch.cat([fp.add_w(field, e, o), fp.sub_w(field, e, o)], dim=-1)
         v = v.reshape(b, m)
         half *= 2
-    if uv is not None:
-        uw, vw = fp.wide(uv[0]), fp.wide(uv[1])
-        v3 = v.reshape(uw.shape[0], vw.shape[0], m)
-        v3 = fp.mont_mul_w(field, fp.mont_mul_w(field, v3, uw[:, None, :]), vw[None])
-        v = v3.reshape(b, m)
-    if post is not None:
-        v = fp.mont_mul_w(field, v, _geo_factor_plain(post, b, m, field, x.device))
-    if scale is not None:
-        v = fp.mont_mul_w(field, v, scale)
-    return fp.narrow(v)
+    return store_plain(v, post, uv, scale, field)
 
 
 def _geo_args(geo: GeoScale | None, field: Field, device) -> tuple:
@@ -414,9 +443,7 @@ def _fourstep_constants(
     j2 = vblk·jh + jl it factors exactly as U[k1, jh]·V[k1, jl],
     U = (w^{vblk})^{k1·jh} (n1 × n2/vblk) and V = w^{k1·jl} (n1 × vblk),
     vblk = min(128, n2). An INTT's 1/n folds into U."""
-    bits = n.bit_length() - 1
-    b1 = (bits + 1) // 2
-    n1, n2 = 1 << b1, 1 << (bits - b1)
+    n1, n2 = split(n)
     u, v = _twiddle_uv_host(n1, n2, w, inverse_scale, field)
     return n1, n2, np.ascontiguousarray(u.T), np.ascontiguousarray(v.T)
 
@@ -489,6 +516,26 @@ def _fourstep_pease(x, n: int, w: int, inverse_scale, field: Field, pre, post):
     return out
 
 
+def split(n: int) -> tuple[int, int]:
+    """n = n1·n2 with n1 = 2^ceil(log2(n)/2) ≥ n2."""
+    bits = n.bit_length() - 1
+    b1 = (bits + 1) // 2
+    return 1 << b1, 1 << (bits - b1)
+
+
+def fourstep_supported(n: int) -> bool:
+    """Whether `ntt_fourstep` has a route for size n (the JAX package's
+    ``fourstep_supported``): `ntt_rows` carries both factors up to 2^26;
+    beyond, the limb-matrix transform (`limb_dft.limb_dft_rows`) carries
+    them up to 2^28."""
+    from zkstark_tpu_torch.ops import limb_dft
+
+    if n < MIN_FOURSTEP:
+        return False
+    n1, n2 = split(n)
+    return n1 <= MAX_ROW or (limb_dft.mxu_supported(n1) and limb_dft.mxu_supported(n2))
+
+
 def ntt_fourstep(
     x: torch.Tensor,
     n: int,
@@ -503,16 +550,33 @@ def ntt_fourstep(
     vector x of at most n words (the tail up to n taken as zero), natural
     order in and out. With inverse_scale (Montgomery n^{-1}) it is a complete
     INTT. Input j is first multiplied by pre_offset^j and output k last by
-    post_offset^k (standard-form residues), where given. The route
-    (`pease_enabled`) is read at each call."""
+    post_offset^k (standard-form residues), where given.
+
+    The route is read at each call, by the rule of the JAX package: both
+    passes run `limb_dft.limb_dft_rows` when ``ZKSTARK_MXU=on`` or n1 exceeds
+    `MAX_ROW` (n > 2^26), provided both factors are within its range; else
+    `ntt_rows_pease` under ``ZKSTARK_PEASE=on``; else `ntt_rows`.
+    `limb_dft_rows` and `ntt_rows` share one contract, so the glue below is
+    the same for both."""
+    from zkstark_tpu_torch.ops import limb_dft
+
     _build.require(x, "ntt_fourstep", 1)
     if x.shape[0] > n:
         raise ValueError(f"ntt_fourstep: {x.shape[0]} words do not fit a size-{n} transform")
+    n1, n2 = split(n)
+    limbs_fit = limb_dft.mxu_supported(n1) and limb_dft.mxu_supported(n2)
+    if n1 > MAX_ROW and not limbs_fit:
+        raise ValueError(
+            f"ntt_fourstep: no route for a size-{n} transform (2^{n.bit_length() - 1}); "
+            f"the largest supported size is 2^{MAX_FOURSTEP.bit_length() - 1}"
+        )
     p = field.p
     pre = None if pre_offset is None else GeoScale(pre_offset, n)
     post = None if post_offset is None else GeoScale(post_offset, n)
-    if pease_enabled():
+    limbs = (limb_dft.mxu_enabled() or n1 > MAX_ROW) and limbs_fit
+    if pease_enabled() and not limbs:
         return _fourstep_pease(x, n, w, inverse_scale, field, pre, post)
+    rows = limb_dft.limb_dft_rows if limbs else ntt_rows
     n1, n2, ut, vt = _device_uv(n, w, inverse_scale, field, x.device)
     if pre is not None:  # element (row j2, column j1) is input j1·n2 + j2
         pre = GeoScale(pre_offset, n, col_stride=n2, row_stride=1)
@@ -520,7 +584,7 @@ def ntt_fourstep(
         post = GeoScale(post_offset, n, col_stride=n1, row_stride=1)
     filled = -(-x.shape[0] // n2)  # rows of the (n1, n2) view that hold input
     at = transpose(x, filled, n2)  # row j2: x[j1·n2 + j2] over j1 < filled
-    at = ntt_rows(at, pow(w, n2, p), field, m=n1, pre=pre, uv=(ut, vt))  # [j2, k1]·ω^{k1·j2}
+    at = rows(at, pow(w, n2, p), field, m=n1, pre=pre, uv=(ut, vt))  # [j2, k1]·ω^{k1·j2}
     b = transpose(at.reshape(n), n2, n1)  # (n1, n2): [k1, j2]
-    d = ntt_rows(b, pow(w, n1, p), field, post=post)  # [k1, k2]
+    d = rows(b, pow(w, n1, p), field, post=post)  # [k1, k2]
     return transpose(d.reshape(n), n1, n2).reshape(n)  # X[k1 + n1·k2]

@@ -67,9 +67,8 @@ def fused_core_batch(cfg: StarkConfig, traces_mont: torch.Tensor) -> dict:
     state, alphas, alphas_mont, _ = fs_chain.chain_step(
         state, digest=roots[0], draws=cfg.n_constraints, field=fld
     )
-    cp = pr.composition_eval(cfg, f_eval, alphas_mont)
+    cp, cp_res = pr.composition_eval_res(cfg, f_eval, alphas_mont)
     del f_eval, coeffs
-    cp_res = fp.from_mont_f(fld, cp)
     cp_levels = merkle.build_levels_batch(cp_res)
     roots.append(cp_levels[-1][:, 0])
 

@@ -3,7 +3,8 @@
   1. trace (host) → INTT interpolation + coset-NTT LDE + Merkle commit;
   2. pointwise constraint composition on the coset (the reference's
      polynomial divisions become products with precomputed inverse
-     vanishing denominators; f(g^k·x) is a roll by k·blowup);
+     vanishing denominators; f(g^k·x) is a read k·blowup points ahead), one
+     launch of the kernel behind ``ops/composition.py``;
   3. FRI: evaluation-form folds, each followed by a Merkle commit;
   4. decommit: per query, the trace openings and one pair per FRI layer.
 
@@ -38,7 +39,7 @@ from zkstark_tpu_torch import ntt
 from zkstark_tpu_torch.field import fp
 from zkstark_tpu_torch.hash import merkle
 from zkstark_tpu_torch.hash.sha256 import digest_to_bytes
-from zkstark_tpu_torch.ops import fri_fold
+from zkstark_tpu_torch.ops import composition, fri_fold
 from zkstark_tpu_torch.protocol import air
 from zkstark_tpu_torch.protocol.config import StarkConfig
 from zkstark_tpu_torch.protocol.openings import sparse_openings
@@ -50,10 +51,17 @@ from zkstark_tpu_torch.transcript import Channel, bincode
 _HOST_CONST_MAX = 1 << 20
 
 
+# points of the domain whose constants are computed at once above
+# `_HOST_CONST_MAX`: the Fermat inversion's int64 temporaries stay at a few
+# hundred MB whatever the domain
+_CONST_CHUNK = 1 << 22
+
+
 @functools.lru_cache(maxsize=4)
-def composition_constants(cfg: StarkConfig, device) -> dict:
-    """The coset domain xs and one inverse denominator per constraint, in
-    alpha order, as uint32 Montgomery tensors on `device`:
+def composition_constants(cfg: StarkConfig, device) -> torch.Tensor:
+    """One inverse denominator per constraint and point of the coset domain,
+    in alpha order, as one (n_constraints, d) uint32 Montgomery tensor on
+    `device`:
 
       Boundary(step, v):   1/(x − g^step)
       Transition(num, ex): 1/Z, Z = (x^n − 1) / Π_{e ∈ ex} (x − g^e)
@@ -62,24 +70,24 @@ def composition_constants(cfg: StarkConfig, device) -> dict:
     invertible on it and the pointwise quotients equal the reference's exact
     polynomial divisions (prover.rs:101-151).
 
-    Kept per (config, device), one domain-sized vector per constraint and
-    one for xs: above 2^20 points building them is a Fermat inversion of the
-    whole domain on the device (about 0.6 s at 2^24 points on an NVIDIA H100,
-    ten times the rest of a proof's device work), and below, uploading them
-    would make every prove wait for the device."""
+    Kept per (config, device), 4 bytes per constraint and point (1 GB at 2^27
+    points and two constraints): above 2^20 points building them is a Fermat
+    inversion of the whole domain on the device (about 0.6 s at 2^24 points on
+    an NVIDIA H100, ten times the rest of a proof's device work), and below,
+    uploading them would make every prove wait for the device. The four most
+    recent entries stay; a process that walks through many big statements
+    frees them with ``composition_constants.cache_clear()``. The domain xs
+    itself is not kept: the composition kernel takes x_j from two small
+    tables (`coset_domain` builds the vector for the plain version)."""
     if cfg.eval_domain <= _HOST_CONST_MAX:
-        c = _composition_constants_host(cfg)
-        return {
-            "xs": fp.from_host(c["xs"], device),
-            "inv_dens": tuple(fp.from_host(a, device) for a in c["inv_dens"]),
-        }
+        return fp.from_host(np.stack(_composition_constants_host(cfg)["inv_dens"]), device)
     return _composition_constants_device(cfg, device)
 
 
 @functools.lru_cache(maxsize=None)
 def _composition_constants_host(cfg: StarkConfig) -> dict:
     """Exact numpy twin of `_composition_constants_device` (u64 modular
-    arithmetic)."""
+    arithmetic), and the domain xs."""
     n, d, o = cfg.trace_domain, cfg.eval_domain, cfg.coset_offset
     fld = cfg.field
     g = cfg.trace_generator
@@ -107,52 +115,105 @@ def _composition_constants_host(cfg: StarkConfig) -> dict:
     return {"xs": fld.host_to_mont(xs_std), "inv_dens": tuple(inv_dens)}
 
 
-def _composition_constants_device(cfg: StarkConfig, device) -> dict:
-    n, d, o = cfg.trace_domain, cfg.eval_domain, cfg.coset_offset
+def _domain_chunk(cfg: StarkConfig, start: int, size: int, device) -> torch.Tensor:
+    """x_j = offset·h^j for start ≤ j < start + size, Montgomery form."""
+    fld = cfg.field
+    scale = cfg.coset_offset * pow(cfg.domain_generator, start, fld.p) % fld.p
+    return fp.powers_iota_f(fld, cfg.domain_generator, size, scale=scale, device=device)
+
+
+def _composition_constants_device(cfg: StarkConfig, device) -> torch.Tensor:
+    """The inverse denominators computed on `device`, `_CONST_CHUNK` points
+    at a time into the one tensor that is kept."""
+    n, d = cfg.trace_domain, cfg.eval_domain
     fld = cfg.field
     g = cfg.trace_generator
-    xs = fp.powers_iota_f(fld, cfg.domain_generator, d, scale=o, device=device)
-    inv_dens = []
-    for con in cfg.constraints:
-        if isinstance(con, air.Boundary):
-            point = fld.mont_scalar(pow(g, con.step, fld.p))
-            inv_dens.append(fp.inv_f(fld, fp.sub_f(fld, xs, point)))
-        else:
-            num = fp.sub_f(fld, fp.pow_static_f(fld, xs, n), fld.r_mod_p)
-            den = None
-            for e in con.exempt:
-                term = fp.sub_f(fld, xs, fld.mont_scalar(pow(g, e, fld.p)))
-                den = term if den is None else fp.mont_mul_f(fld, den, term)
-            inv = fp.inv_f(fld, num)
-            inv_dens.append(inv if den is None else fp.mont_mul_f(fld, den, inv))
-    return {"xs": xs, "inv_dens": tuple(inv_dens)}
+    out = torch.empty((cfg.n_constraints, d), dtype=torch.int32, device=device)
+    size = min(d, _CONST_CHUNK)
+    for start in range(0, d, size):
+        xs = _domain_chunk(cfg, start, size, device)
+        for c, con in enumerate(cfg.constraints):
+            if isinstance(con, air.Boundary):
+                point = fld.mont_scalar(pow(g, con.step, fld.p))
+                inv = fp.inv_f(fld, fp.sub_f(fld, xs, point))
+            else:
+                num = fp.sub_f(fld, fp.pow_static_f(fld, xs, n), fld.r_mod_p)
+                den = None
+                for e in con.exempt:
+                    term = fp.sub_f(fld, xs, fld.mont_scalar(pow(g, e, fld.p)))
+                    den = term if den is None else fp.mont_mul_f(fld, den, term)
+                inv = fp.inv_f(fld, num)
+                inv = inv if den is None else fp.mont_mul_f(fld, den, inv)
+            out[c, start : start + size] = fp.as_i32(inv)
+    return fp.as_u32(out)
+
+
+def coset_domain(cfg: StarkConfig, device) -> torch.Tensor:
+    """The coset domain xs (d,) in Montgomery form on `device`; built at each
+    call (only `composition_eval_plain` reads it)."""
+    if cfg.eval_domain <= _HOST_CONST_MAX:
+        return fp.from_host(_composition_constants_host(cfg)["xs"], device)
+    return _domain_chunk(cfg, 0, cfg.eval_domain, device)
+
+
+@functools.lru_cache(maxsize=None)
+def composition_program(cfg: StarkConfig) -> composition.Program:
+    """The config's constraint system as the device program of
+    ``ops/composition.py``."""
+    p = cfg.field.p
+    cons = [
+        ("boundary", con.value % p) if isinstance(con, air.Boundary)
+        else ("transition", air.numerator_program(con.numerator, cfg.air.shifts, p))
+        for con in cfg.constraints
+    ]
+    return composition.encode(cons, cfg.air.shifts, cfg.blowup, cfg.eval_domain,
+                              cfg.domain_generator, cfg.coset_offset, cfg.field)
 
 
 def _roll(x: torch.Tensor, shift: int) -> torch.Tensor:
     return fp.as_u32(torch.roll(fp.as_i32(x), shift, dims=-1))
 
 
-def composition_eval(cfg: StarkConfig, f_eval: torch.Tensor, alphas_mont):
-    """Pointwise constraint composition on the coset (prover.rs:87-180)
-    from the config's AIR. f_eval: (…, d) uint32 Montgomery, the leading axes
-    independent proofs; alphas_mont: Montgomery-form ints, one per constraint,
-    or a (…, n_constraints) uint32 device tensor. f(g^k·x) is a roll by
-    k·blowup (g = h^blowup)."""
-    c = composition_constants(cfg, f_eval.device)
+def composition_eval_plain(cfg: StarkConfig, f_eval: torch.Tensor, alphas_mont):
+    """`composition_eval` as whole-tensor field ops straight from the
+    config's AIR (no device program): the numerators run on `air.device_ops`,
+    f(g^k·x) is a roll by k·blowup (g = h^blowup). What the composition
+    kernel and its program are held against."""
+    inv_dens = composition_constants(cfg, f_eval.device)
+    xs = coset_domain(cfg, f_eval.device)
     fld = cfg.field
     b = cfg.blowup
     shifted = {k: f_eval if k == 0 else _roll(f_eval, -k * b) for k in cfg.air.shifts}
     if isinstance(alphas_mont, torch.Tensor):
         alphas_mont = [alphas_mont[..., i : i + 1] for i in range(cfg.n_constraints)]
     acc = None
-    for con, inv_den, alpha in zip(cfg.constraints, c["inv_dens"], alphas_mont):
+    for con, inv_den, alpha in zip(cfg.constraints, inv_dens, alphas_mont):
         if isinstance(con, air.Boundary):
             num = fp.sub_f(fld, shifted[0], fld.mont_scalar(con.value))
         else:
-            num = con.numerator(air.device_ops(fld), lambda k: shifted[k], c["xs"])
+            num = con.numerator(air.device_ops(fld), lambda k: shifted[k], xs)
         term = fp.mont_mul_f(fld, fp.mont_mul_f(fld, num, inv_den), alpha)
         acc = term if acc is None else fp.add_f(fld, acc, term)
     return acc
+
+
+def composition_eval_res(cfg: StarkConfig, f_eval: torch.Tensor, alphas_mont):
+    """Pointwise constraint composition on the coset (prover.rs:87-180)
+    from the config's AIR, through `ops.composition.composition`: one kernel
+    launch on a CUDA tensor. f_eval: (…, d) uint32 Montgomery, the leading
+    axes independent proofs; alphas_mont: Montgomery-form ints, one per
+    constraint, or a (…, n_constraints) uint32 device tensor. Returns
+    (cp_eval, cp_res): Montgomery form and standard residues."""
+    return composition.composition(
+        f_eval, composition_constants(cfg, f_eval.device), alphas_mont,
+        composition_program(cfg), cfg.field,
+    )
+
+
+def composition_eval(cfg: StarkConfig, f_eval: torch.Tensor, alphas_mont):
+    """`composition_eval_res` without the residues (the JAX package's
+    signature)."""
+    return composition_eval_res(cfg, f_eval, alphas_mont)[0]
 
 
 def _fri_layer_params(cfg: StarkConfig, layer: int):
@@ -276,8 +337,7 @@ def phase2(cfg: StarkConfig, channel: Channel, f_eval: torch.Tensor):
     """Composition (prover.rs:87-180): (cp_eval, cp_res, cp_levels)."""
     fld = cfg.field
     alphas = [fld.mont_scalar(channel.get_u32()) for _ in range(cfg.n_constraints)]
-    cp_eval = composition_eval(cfg, f_eval, alphas)
-    cp_res = fp.from_mont_f(fld, cp_eval)
+    cp_eval, cp_res = composition_eval_res(cfg, f_eval, alphas)
     cp_levels = merkle.build_levels(cp_res)
     channel.commit_hash(_root_bytes(cp_levels))
     return cp_eval, cp_res, cp_levels

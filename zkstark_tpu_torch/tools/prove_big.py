@@ -4,9 +4,13 @@ statement at --trace-bits (evaluation domain 2^(trace_bits + 3) at blowup 8),
 then its verification.
 
     python -m zkstark_tpu_torch.tools.prove_big --trace-bits 22   # 2^25 points
+    python -m zkstark_tpu_torch.tools.prove_big --trace-bits 24   # 2^27 points
 
-Prints one JSON line per step: the witness, the cold prove (with its phase
-spans), then the metric ``prove_latency_2e<bits+3>``, the best of --repeats
+Trace bits up to 25 (2^28 points, the largest four-step size) have an NTT
+route; past 2^26 points it is the limb-matrix transform of
+``ops/limb_dft.py``. Prints one JSON line per step: the witness, the cold
+prove (with its phase spans and the peak device memory so far, so that a run
+that later dies of memory has left its peak), then the metric ``prove_latency_2e<bits+3>``, the best of --repeats
 warm proves. Each prove ends when its proof bytes are on the host, so the
 host clock needs no extra device synchronisation. ``--device cpu`` runs the
 kernels' plain-torch twins.
@@ -59,8 +63,11 @@ def run(trace_bits: int = 21, blowup: int = 8, queries: int = 1, repeats: int = 
     t0 = time.perf_counter()
     proof = prove(cfg, SECRET, device=dev, timings=phases, fused=False)
     cold = time.perf_counter() - t0
-    emit({"step": "cold_prove", "seconds": round(cold, 4), "proof_bytes": len(proof.data),
-          "phases": {k: round(v, 4) for k, v in phases.items()}})
+    rec = {"step": "cold_prove", "seconds": round(cold, 4), "proof_bytes": len(proof.data),
+           "phases": {k: round(v, 4) for k, v in phases.items()}}
+    if dev.type == "cuda":
+        rec["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    emit(rec)
 
     best = float("inf")
     for _ in range(repeats):

@@ -96,7 +96,8 @@ def main(argv=None) -> int:
     for name, instrs in parse(sass).items():
         short = next((k for k in ("ntt_rows_pease_kernel", "ntt_rows_kernel", "transpose_kernel",
                                   "sha256_leaf", "sha256_node", "fp_check_kernel",
-                                  "fs_chain_kernel", "fri_fold_kernel") if k in name),
+                                  "fs_chain_kernel", "fri_fold_kernel", "limb_dft_rows_kernel",
+                                  "composition_kernel") if k in name),
                      name)
         instance = re.search(r"kernelIL[ib](\d+)E", name)  # a template instance: its argument
         if instance:
