@@ -26,7 +26,7 @@ Phases, one output line (or a few) each:
      the profiler like the 2^25 call;
   4. stark-101 proved on the card: the golden 7,836-byte transcript and
      final state, accepted by the port's verifier and the C++ verifier, every
-     kernel launched;
+     kernel launched, the Merkle trees in at most 20 node and tail launches;
   5. a 2^16-point square-chain proof on the card equals the CPU proof;
   6. the 2,097,151-step square-chain statement (2^24 evaluation points,
      21 FRI rounds) on the card: 22,496 proof bytes, both verifiers accept;
@@ -83,8 +83,12 @@ BIG_PROOF_LEN = 22496
 HUGE_TRACE_BITS = 22  # 2^25 evaluation points
 HUGE_PROOF_LEN = 24252  # artifacts/PROVE_2e25_r04.jsonl
 GIANT_TRACE_BITS = 24  # 2^27 evaluation points: n1 = 16384 > MAX_ROW, the limb route
+GIANT_PROOF_LEN = 27956  # from the proof layout (`protocol.proof.expected_proof_len`)
 # every proof launches these (below the four-step size: no transpose)
-ROW_KERNELS = ("sha256_leaf", "sha256_node", "ntt_rows", "composition")
+ROW_KERNELS = ("sha256_leaf", "sha256_node", "sha256_tree_tail", "ntt_rows", "composition")
+# the most `sha256_node` + `sha256_tree_tail` launches of one stark-101 prove
+# (or one batch of them): 3 a tree of 8192 values, 2 at 4096, 1 below
+MAX_TREE_LAUNCHES = 20
 DIT_KERNELS = (*ROW_KERNELS, "transpose")
 FUSED_KERNELS = ("fs_chain", "fri_fold")  # the one-fetch path's own
 
@@ -131,6 +135,7 @@ LIMB_RECOMBINE = 6 + 5
 SRC = {
     "sha256_leaf": ("zkstark_tpu_torch/csrc/sha256.cu", "zkstark_tpu/ops/sha256_kernel.py:105"),
     "sha256_node": ("zkstark_tpu_torch/csrc/sha256.cu", "zkstark_tpu/ops/sha256_kernel.py:139"),
+    "sha256_tree_tail": ("zkstark_tpu_torch/csrc/sha256.cu", "zkstark_tpu/hash/merkle.py:146"),
     "ntt_rows": ("zkstark_tpu_torch/csrc/ntt.cu", "zkstark_tpu/ops/ntt_kernel.py:78"),
     "transpose": ("zkstark_tpu_torch/csrc/transpose.cu", "zkstark_tpu/ops/ntt_kernel.py:357"),
     "ntt_rows_pease": ("zkstark_tpu_torch/csrc/ntt_pease.cu", "zkstark_tpu/ops/ntt_kernel.py:125"),
@@ -205,24 +210,22 @@ def limb_rows_bound(batch, valid, m, pre=False, uv=False, post=False, scale=Fals
     return bound(4 * words, instr, macs)
 
 
-def expected_proof_len(cfg) -> int:
-    """The length of a proof's transcript from the proof layout: the roots
-    (32 B each), the free term and every drawn challenge (4 B each), and per
-    query the trace openings, the composition opening (a value and a path: 4
-    + 8 + 32·depth) and one pair per FRI layer (two values, two paths)."""
-    depth = cfg.eval_domain.bit_length() - 1
-    rounds, q = cfg.fri_rounds, cfg.n_queries
-    opening = (len(cfg.air.shifts) + 1) * (4 + 8 + 32 * depth)
-    pairs = sum(8 + 2 * (8 + 32 * (depth - layer)) for layer in range(rounds))
-    return 32 * (2 + rounds) + 4 + 4 * (cfg.n_constraints + rounds + q) + q * (opening + pairs)
-
-
 def require_launched(counts: dict, names, what: str) -> None:
     """Each kernel in `names` launched at least once in the run `counts`
     was read after."""
     missing = [n for n in names if counts[n] <= 0]
     if missing:
         raise AssertionError(f"{what}: kernels {missing} were not launched: {counts}")
+
+
+def require_few_tree_launches(counts: dict, what: str) -> int:
+    """The Merkle trees of one stark-101 prove, or of one batch, take at most
+    `MAX_TREE_LAUNCHES` node and tail launches (one a level or tail, whatever
+    the batch); returns the count."""
+    n = counts["sha256_node"] + counts["sha256_tree_tail"]
+    if n > MAX_TREE_LAUNCHES:
+        raise AssertionError(f"{what}: {n} node + tail launches, want <= {MAX_TREE_LAUNCHES}: {counts}")
+    return n
 
 
 def require_one_composition(counts: dict, what: str) -> None:
@@ -470,6 +473,7 @@ def phase3_kernels() -> dict:
         del x
     say("phase3 clocks", sm_clocks())
     rows.update(phase3_chain_and_fold())
+    rows.update(phase3_serial_kernels(rows["fs_chain"]))
     rows.update(phase3_limb_and_composition())
     phase3_lde()
     return rows
@@ -554,6 +558,88 @@ def phase3_chain_and_fold() -> dict:
                     )
                 del evals
         say(f"phase3 fri_fold p={p} B in (1, 3) m=2..2^24 equal to the plain version, tol=0")
+    return rows
+
+
+def device_ms(fn, kernel: str, iters: int = 10) -> float:
+    """Mean device milliseconds of the kernel named `kernel` over `iters`
+    calls of `fn`, from torch.profiler: the kernel's own spans, without the
+    wrapper's enqueue that a CUDA-event time of a short call is made of."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and kernel in e.name]
+    if not spans:  # the profiler may drop a span of a window; it must not drop them all
+        raise AssertionError(f"torch.profiler saw no launch of {kernel}")
+    return sum(spans) / len(spans) / 1e3
+
+
+def phase3_serial_kernels(chain_row: dict) -> dict:
+    """The two kernels that latency bounds, not throughput. First the latency
+    of one dependent SHA-256 compression on one thread: the device time of
+    `fs_chain` with 2048 draws less that with 1024 (a draw is one compression
+    that waits for the one before), over 1024. Then `fs_chain`'s own row with
+    its device time and its bound (its compressions times that latency), and
+    `sha256_tree_tail` against `tree_tail_plain`, every word equal, with the
+    bound of its levels times one dependent node hash (two compressions; a
+    leaf level one more)."""
+    from zkstark_tpu_torch.field import fp
+    from zkstark_tpu_torch.ops import fs_chain, sha256_kernel
+
+    rng = np.random.default_rng(36)
+
+    def u32(shape):
+        return fp.from_host(rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32), "cuda")
+
+    state, digest = u32((1, 8)), u32((1, 8))
+    long_ms = [device_ms(lambda: fs_chain.chain_step(state, draws=n), "fs_chain_kernel", 5)
+               for n in (1024, 2048)]
+    compression_ms = (long_ms[1] - long_ms[0]) / 1024
+    say(f"phase3 dependent compression on one thread: draws=1024 device_ms={long_ms[0]:.4f} "
+        f"draws=2048 device_ms={long_ms[1]:.4f} one_compression_us={compression_ms * 1e3:.4f}")
+    rows = {}
+
+    # fs_chain, one boundary at B = 1: a root (two compressions) and one draw
+    chain_ms = device_ms(lambda: fs_chain.chain_step(state, digest=digest, draws=1),
+                         "fs_chain_kernel", 20)
+    chain_bound = 3 * compression_ms
+    say(f"phase3 fs_chain B=1 digest+1 draw device_ms={chain_ms:.5f} (the wrapper's enqueue: "
+        f"{chain_row['ms']:.4f}) bound_ms={chain_bound:.5f} bound_by=operations "
+        f"(3 dependent compressions) share={chain_bound / chain_ms:.3f}")
+    rows["fs_chain"] = dict(chain_row, ms=chain_ms, bound_ms=chain_bound, bound_by="operations")
+
+    # no PyTorch call computes a Merkle tree: no library time
+    top = sha256_kernel.TAIL_PARENTS
+    for trees, t in ((1, top), (32, top), (1, top // 2), (1, top // 4), (32, top // 4), (3, 16),
+                     (1, 2), (5, 1)):
+        for from_values in (False, True):
+            level = u32(trees * 2 * t) if from_values else u32((trees * 2 * t, 8))
+            label = f"trees={trees} parents={t} from_values={from_values}"
+            _all_equal("sha256_tree_tail", label,
+                       sha256_kernel.tree_tail(level, trees, from_values),
+                       sha256_kernel.tree_tail_plain(level, trees, from_values))
+            levels = t.bit_length()
+            limit = dict(bound_ms=(2 * levels + from_values) * compression_ms, bound_by="operations")
+            ms = device_ms(lambda: sha256_kernel.tree_tail(level, trees, from_values),
+                           "sha256_tree_tail", 10)
+            enqueue_ms = cuda_ms(lambda: sha256_kernel.tree_tail(level, trees, from_values), 20)
+            say(f"phase3 sha256_tree_tail {label} max_abs_err=0 tol=0 device_ms={ms:.5f} "
+                f"wrapper_ms={enqueue_ms:.4f} bound_ms={limit['bound_ms']:.5f} "
+                f"bound_by=operations ({levels} levels of one dependent node hash) "
+                f"share={limit['bound_ms'] / ms:.3f}")
+            if (trees, t, from_values) == (1, top, False):
+                # the plain version is thousands of launches: timed for this row only
+                plain_ms = cuda_ms(lambda: sha256_kernel.tree_tail_plain(level, trees), 1)
+                say(f"phase3 sha256_tree_tail {label} plain_ms={plain_ms:.4f}")
+                rows["sha256_tree_tail"] = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                                                library_ms=None, **limit)
     return rows
 
 
@@ -683,13 +769,12 @@ def phase3_limb_and_composition() -> dict:
             )
         del f, alphas
     say("phase3 composition square-chain d=2^24 B in (1, 3) equal to composition_eval_plain, tol=0")
-    pr.composition_constants.cache_clear()
     torch.cuda.empty_cache()
     return rows
 
 
 OWN_KERNELS = ("ntt_rows_kernel", "transpose_kernel", "ntt_rows_pease_kernel", "sha256_leaf",
-               "sha256_node", "fs_chain_kernel", "fri_fold_kernel", "limb_dft_rows_kernel",
+               "sha256_node", "sha256_tree_tail", "fs_chain_kernel", "fri_fold_kernel", "limb_dft_rows_kernel",
                "composition_kernel")
 
 
@@ -758,6 +843,7 @@ def phase4_stark101():
     verify_native(proof, STARK101)
     require_launched(counts, (*ROW_KERNELS, "fri_fold"), "stark-101")
     require_one_composition(counts, "stark-101")
+    tree_launches = require_few_tree_launches(counts, "stark-101")
     warm = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -770,8 +856,8 @@ def phase4_stark101():
     prove(STARK101, STARK101_SECRET, device="cuda", timings=timings, fused=False)
     say(
         f"phase4 stark101 host-synced golden bytes={len(proof.data)} state={proof.state.hex()[:8]} "
-        f"verify=ok native=ok launches={json.dumps(counts)} cold_s={cold:.4f} "
-        f"warm_s_min={min(warm):.4f} warm_s_median={sorted(warm)[2]:.4f} "
+        f"verify=ok native=ok launches={json.dumps(counts)} node+tail_launches={tree_launches} "
+        f"cold_s={cold:.4f} warm_s_min={min(warm):.4f} warm_s_median={sorted(warm)[2]:.4f} "
         f"phases={json.dumps({k: round(v, 5) for k, v in timings.items()})}"
     )
 
@@ -806,6 +892,7 @@ def phase5_cross_check():
 def phase6_big():
     from zkstark_tpu_torch import ops, prove, verify
     from zkstark_tpu_torch.native import verify_native
+    from zkstark_tpu_torch.protocol.proof import expected_proof_len
 
     t0 = time.perf_counter()
     cfg = _square_chain_cfg(BIG_TRACE_BITS, BIG_SECRET)
@@ -866,6 +953,7 @@ def phase7_entry_points(tmp_dir: str) -> dict:
     from zkstark_tpu_torch import ops
     from zkstark_tpu_torch.native import verify_native
     from zkstark_tpu_torch.protocol import Proof
+    from zkstark_tpu_torch.protocol.proof import expected_proof_len
     from zkstark_tpu_torch.tools import prove_big
 
     trace_len = (1 << HUGE_TRACE_BITS) - 1
@@ -877,7 +965,8 @@ def phase7_entry_points(tmp_dir: str) -> dict:
     cli = _cli(statement + ["prove", "--secret", str(BIG_SECRET), "--out", out], env)
     cli_s = time.perf_counter() - t0
     pease_counts = cli["kernel_launches"]
-    require_launched(pease_counts, ("sha256_leaf", "sha256_node", "ntt_rows_pease", *FUSED_KERNELS),
+    require_launched(pease_counts, ("sha256_leaf", "sha256_node", "sha256_tree_tail",
+                                    "ntt_rows_pease", *FUSED_KERNELS),
                      "CLI 2^25")
     boundary = str(cli["boundary_last"])
     checked = _cli(statement + ["--boundary-last", boundary, "verify", out], env)
@@ -1062,6 +1151,7 @@ def phase9_fused_solo():
     verify_native(proof, STARK101)
     require_launched(counts, (*ROW_KERNELS, *FUSED_KERNELS), "fused stark-101")
     require_one_composition(counts, "fused stark-101")
+    tree_launches = require_few_tree_launches(counts, "fused stark-101")
     if _guarded_core(STARK101, STARK101_SECRET) != proof:
         raise AssertionError("fused stark-101 under the sync debug mode differs")
     fused_s = _warm_min(lambda: prove(STARK101, STARK101_SECRET, device="cuda"), proof, 5, "fused")
@@ -1072,7 +1162,8 @@ def phase9_fused_solo():
     busy = _device_busy(lambda: prove(STARK101, STARK101_SECRET, device="cuda"))
     say(
         f"phase9 stark101 fused golden bytes={len(proof.data)} fused==host_synced verify=ok "
-        f"native=ok sync_debug_mode=error:ok launches={json.dumps(counts)} first_s={cold:.4f} "
+        f"native=ok sync_debug_mode=error:ok launches={json.dumps(counts)} "
+        f"node+tail_launches={tree_launches} all_launches={sum(counts.values())} first_s={cold:.4f} "
         f"warm_ms_min_fused={fused_s * 1e3:.3f} warm_ms_min_host_synced={legacy_s * 1e3:.3f} "
         f"spans={json.dumps({k: round(v, 5) for k, v in timings.items()})} "
         f"profiled={json.dumps(busy)}"
@@ -1094,10 +1185,13 @@ def phase10_batch(cfg16, proof16):
             raise AssertionError(f"prove_batch B={bsz}: a proof is not the golden one")
         require_launched(counts, (*ROW_KERNELS, *FUSED_KERNELS), f"prove_batch B={bsz}")
         require_one_composition(counts, f"prove_batch B={bsz}")
+        # a batch launches once a level or tail, not once a tree
+        tree_launches = require_few_tree_launches(counts, f"prove_batch B={bsz}")
         best = _warm_min(lambda: prove_batch(STARK101, secrets, device="cuda"), proofs, 3,
                          f"prove_batch B={bsz}")
         say(f"phase10 prove_batch stark101 B={bsz} all golden batch_s_min={best:.4f} "
-            f"proofs_per_s={bsz / best:.1f} launches={json.dumps(counts)}")
+            f"proofs_per_s={bsz / best:.1f} node+tail_launches={tree_launches} "
+            f"launches={json.dumps(counts)}")
     batches = [[STARK101_SECRET] * 32] * 4
     proofs = prove_batch_pipelined(STARK101, batches, depth=2, device="cuda")
     if len(proofs) != 128 or any(p != golden for p in proofs):
@@ -1177,12 +1271,12 @@ def phase12_past_2e26() -> dict:
     from zkstark_tpu_torch import ops, prove, verify
     from zkstark_tpu_torch.native import verify_native
     from zkstark_tpu_torch.ops import ntt_kernel
-    from zkstark_tpu_torch.protocol import prover as pr
+    from zkstark_tpu_torch.protocol.proof import expected_proof_len
     from zkstark_tpu_torch.tools import prove_big
 
-    # the constants of the earlier statements (128 and 256 MB) and the
-    # allocator's cached blocks go before the largest statement starts
-    pr.composition_constants.cache_clear()
+    # the composition constants of the earlier statements (128 and 256 MB) are
+    # evicted by the cache's byte budget once this statement's 1 GB entry is in;
+    # the twiddle tables and the allocator's cached blocks go by hand
     ntt_kernel._device_uv.cache_clear()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1192,10 +1286,14 @@ def phase12_past_2e26() -> dict:
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     want_len = expected_proof_len(cfg)
-    if len(proof.data) != want_len:
+    if len(proof.data) != want_len or want_len != GIANT_PROOF_LEN:
         raise AssertionError(f"2^27 proof has {len(proof.data)} bytes, the layout gives {want_len}")
-    verify_native(proof, cfg)  # prove_big.run has called the port's verifier
-    require_launched(counts, ("sha256_leaf", "sha256_node", "ntt_rows", "transpose", "fri_fold",
+    # prove_big.run has called both verifiers and compared the length with the layout
+    if not (rec["verified"] and rec["verified_native"] and rec["layout_ok"]
+            and rec["layout_bytes"] == want_len):
+        raise AssertionError(f"prove_big's record does not show its three checks: {rec}")
+    require_launched(counts, ("sha256_leaf", "sha256_node", "sha256_tree_tail", "ntt_rows",
+                              "transpose", "fri_fold",
                               "limb_dft_rows", "composition"), "prove_big 2^27")
     if counts["composition"] != 2:  # the cold prove and one warm prove
         raise AssertionError(f"prove_big 2^27: {counts['composition']} composition launches, want 2")
@@ -1216,7 +1314,8 @@ def phase12_past_2e26() -> dict:
         raise AssertionError("2^27: the fused proof differs from prove_big's")
     verify(fused, cfg)
     verify_native(fused, cfg)
-    require_launched(fused_counts, ("limb_dft_rows", "composition", *FUSED_KERNELS), "fused 2^27")
+    require_launched(fused_counts, ("limb_dft_rows", "composition", "sha256_tree_tail",
+                                    *FUSED_KERNELS), "fused 2^27")
     require_one_composition(fused_counts, "fused 2^27")
     say(
         f"phase12 square-chain 2^27 trace_len={cfg.trace_len} fri_rounds={cfg.fri_rounds} "

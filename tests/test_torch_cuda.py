@@ -397,10 +397,11 @@ def test_wrappers_reject_bad_input(dev):
 
 
 @FIELDS
-@pytest.mark.parametrize("batch", [1, 3, 130])
+@pytest.mark.parametrize("batch", [1, 3, 130, 300])
 @pytest.mark.parametrize("log_m", range(7, 15))
 def test_limb_dft_rows_every_length(dev, field, log_m, batch):
-    """Equal to its plain version and, up to 8192, to `ntt_rows`."""
+    """Equal to its plain version and, up to 8192, to `ntt_rows`; 300 rows
+    are more than the card has SMs, so a block takes several rows."""
     m = 1 << log_m
     x = _rand_mont(field, (batch, m), log_m, dev)
     w = ntt_core.forward_plan(m, field).root
@@ -591,3 +592,66 @@ def test_new_wrappers_reject_bad_input(dev):
         composition.composition(f, inv, alphas.cpu(), prog)
     with pytest.raises(TypeError):
         composition.composition(fp.as_i32(f), inv, alphas, prog)
+
+
+@pytest.mark.parametrize("from_values", [False, True])
+@pytest.mark.parametrize(
+    "trees,t", [(1, 1), (5, 1), (1, 2), (3, 16), (2, 512), (1, 1024), (32, 1024), (64, 256)]
+)
+def test_tree_tail_kernel(dev, trees, t, from_values):
+    """Every level of the tail equals `tree_tail_plain`'s, and the levels are
+    contiguous, 16-byte aligned views of one buffer."""
+    shape = trees * 2 * t if from_values else (trees * 2 * t, 8)
+    level = fp.from_host(_u32(shape, t + trees), dev)
+    got = sha256_kernel.tree_tail(level, trees, from_values)
+    want = sha256_kernel.tree_tail_plain(level, trees, from_values)
+    assert len(got) == len(want) == t.bit_length() + from_values
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.is_contiguous() and g.data_ptr() % 16 == 0
+        _eq(g, w)
+
+
+@pytest.mark.parametrize("bsz", [1, 3])
+@pytest.mark.parametrize("n", [1, 2, 64, 2048, 4096, 8192, 1 << 15])
+def test_merkle_levels_on_card_equal_cpu(dev, n, bsz):
+    from zkstark_tpu_torch import ops
+    from zkstark_tpu_torch.hash import merkle
+
+    vals = _u32((bsz, n), n)
+    ops.reset_launch_counts()
+    got = merkle.build_levels_batch(fp.from_host(vals, dev))
+    counts = ops.launch_counts()
+    want = merkle.build_levels_batch(fp.from_host(vals, "cpu"))
+    assert len(got) == len(want) == n.bit_length()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.is_contiguous() and g.data_ptr() % 16 == 0
+        _eq(g, w)
+    # one launch a wide level, one for all the narrow ones, whatever the batch
+    top = 2 * sha256_kernel.TAIL_PARENTS
+    wide = max(0, n.bit_length() - top.bit_length())
+    assert counts["sha256_node"] == wide
+    assert counts["sha256_tree_tail"] == (1 if n > 1 else 0)
+    assert counts["sha256_leaf"] == (1 if n > top or n == 1 else 0)
+
+
+def test_tree_tail_rejects_bad_input(dev):
+    with pytest.raises(ValueError, match="sha256_tree_tail"):
+        sha256_kernel.tree_tail(fp.from_host(_u32((6, 8), 1), dev), 1)
+    with pytest.raises(ValueError, match="sha256_tree_tail"):
+        sha256_kernel.tree_tail(fp.from_host(_u32((4096, 8), 1), dev), 1)
+    with pytest.raises(ValueError, match="aligned"):
+        sha256_kernel.tree_tail(fp.from_host(_u32(5, 1), dev)[1:], 1, from_values=True)
+
+
+def test_stark101_tree_launches_on_card(dev):
+    """A stark-101 prove builds its 12 Merkle trees in at most 20 node and
+    tail launches (3 a tree of 8192 values, 2 at 4096, 1 below)."""
+    from zkstark_tpu_torch import STARK101, STARK101_SECRET, ops, prove
+
+    for fused in (True, False):
+        ops.reset_launch_counts()
+        proof = prove(STARK101, STARK101_SECRET, device=dev, fused=fused)
+        counts = ops.launch_counts()
+        assert len(proof.data) == 7836
+        assert counts["sha256_node"] + counts["sha256_tree_tail"] <= 20
+        assert counts["sha256_tree_tail"] == 12

@@ -210,21 +210,29 @@ def test_pease_switch_is_ignored_on_the_limb_route(monkeypatch):
     np.testing.assert_array_equal(tfp.to_host(a), tfp.to_host(b))
 
 
-def test_fragment_order_of_the_kernel_matrix():
-    """`_fragment_words` holds, for lane 4·g + tg and register r, the word
-    AW[c, 16·ib + g + 8·(r & 1), 8·ks + tg + 4·(r >> 1)] whose byte a is
-    A[k·c + i, k·a + j]: the A-fragment layout of mma.m16n8k32, and zero
-    rows where the radix is below one tile."""
+@pytest.mark.parametrize("k", [8, 16, 32, 64, 128])
+def test_fragment_order_of_the_kernel_matrix(k):
+    """`_tile_words`, read as bytes the way the kernel's ``wgmma`` matrix
+    descriptors address them (k-steps 4096 bytes apart, the two tiles of a
+    pair 2048, groups of 8 rows 256, the two 16-byte K chunks 128, a row 16),
+    holds `_limb_matrix` entry by entry: row 16·wq + 8·h + g of tile T of pair
+    p is (c, i) = (2·T + h, 32·p + 8·wq + g), contraction byte 32·ks + kb is
+    4·j + a, and rows past the radix are zero."""
     fld = tfp.FIELD101
-    for k in (8, 32):
-        w = fld.subgroup_generator(k)
-        a = limb_dft._limb_matrix(k, w, fld).astype(np.int64).reshape(4, k, 4, k)
-        frag = limb_dft._fragment_words(k, w, fld).reshape(max(k, 16) // 16, k // 8, 4, 32, 4)
-        for ib, ks, c, lane, r in np.ndindex(*frag.shape):
-            g, tg = lane >> 2, lane & 3
-            i, j = 16 * ib + g + 8 * (r & 1), 8 * ks + tg + 4 * (r >> 1)
-            word = sum(int(a[c, i, lb, j]) << (8 * lb) for lb in range(4)) if i < k else 0
-            assert int(frag[ib, ks, c, lane, r]) == word
+    w = fld.subgroup_generator(k)
+    a = limb_dft._limb_matrix(k, w, fld)
+    words = limb_dft._tile_words(k, w, fld)
+    raw = words.view(np.uint8)  # little-endian: byte a of a word is limb a
+    pairs, ksteps = -(-k // 32), k // 8
+    assert raw.size == pairs * ksteps * 4096
+    p, ks, t, r, kb = np.meshgrid(np.arange(pairs), np.arange(ksteps), np.arange(2),
+                                  np.arange(64), np.arange(32), indexing="ij")
+    addr = (p * ksteps + ks) * 4096 + t * 2048 + (r // 8) * 256 + (kb // 16) * 128 + (r % 8) * 16 + kb % 16
+    c, i = 2 * t + (r % 16) // 8, 32 * p + 8 * (r // 16) + r % 8
+    j, limb = (32 * ks + kb) // 4, kb % 4
+    want = np.where(i < k, a[k * c + np.minimum(i, k - 1), k * limb + j], 0)
+    np.testing.assert_array_equal(raw[addr], want)
+    assert np.unique(addr).size == raw.size  # every byte is addressed once
 
 
 def test_limb_wrapper_checks_input():

@@ -11,6 +11,18 @@
 // schedule-plus-K table. Any n >= 1 is taken; the ragged last block is
 // masked.
 //
+// sha256_tree_tail is sha256_node for the shape the Merkle trees really
+// launch: above its first few levels a tree has fewer parents than the card
+// has threads, a launch a level is then nothing but the host's enqueue
+// (20-30 us each, log2(n) of them a tree), and the JAX package left these
+// levels to XLA, which fused them into the one program. Here one block a
+// tree hashes level after level: thread j < parents hashes its two children,
+// writes the parent to device memory (every level is kept: the openings read
+// them) and hands it to the next level through shared memory. What bounds it
+// is latency, not throughput: one dependent node hash a level. It can start
+// from the residues (the leaf hashes inside), so that a tree of at most
+// 2 * kTailMax values is one launch.
+//
 // Reference semantics (merkle.rs:30-45): leaf = SHA256(u32 big-endian),
 // node = SHA256(left || right); digests are 8 big-endian words.
 #include <cstdint>
@@ -66,6 +78,82 @@ __global__ void sha256_node(const uint32_t* __restrict__ children, uint32_t* __r
   store_digest(out + i * 8, st);
 }
 
+constexpr int kTailMax = 1024;  // most parents of a tail's first level: one thread each
+
+// One block a tree, blockDim.x >= t threads. in: the children of the first
+// level, (trees, 2t, 8) digests, or with from_values (trees, 2t) residues.
+// out: the levels back to back, each (trees, k, 8): with from_values the 2t
+// leaves first, then k = t, t/2, ..., 1.
+__global__ void __launch_bounds__(kTailMax) sha256_tree_tail(const uint32_t* __restrict__ in,
+                                                             uint32_t* __restrict__ out, int t,
+                                                             int from_values) {
+  __shared__ uint4 buf[2 * kTailMax];  // the level just hashed, two uint4 a digest
+  const int64_t tree = blockIdx.x;
+  const int64_t trees = gridDim.x;
+  const int j = threadIdx.x;
+  uint32_t w[16];
+  uint32_t st[8];
+  uint32_t* level = out;
+  if (from_values) {
+    if (j < t) {
+      const int64_t leaf = (tree * t + j) * 2;
+      const uint2 v = *reinterpret_cast<const uint2*>(in + leaf);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t m[16];
+        m[0] = h ? v.y : v.x;
+        m[1] = 0x80000000u;
+#pragma unroll
+        for (int q = 2; q < 15; ++q) m[q] = 0u;
+        m[15] = 32u;
+        init_state(st);
+        compress(st, m);
+        store_digest(level + (leaf + h) * 8, st);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) w[8 * h + q] = st[q];
+      }
+    }
+    level += trees * t * 16;
+  } else if (j < t) {
+    const uint4* c = reinterpret_cast<const uint4*>(in + (tree * t + j) * 16);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint4 v = c[q];
+      w[4 * q + 0] = v.x;
+      w[4 * q + 1] = v.y;
+      w[4 * q + 2] = v.z;
+      w[4 * q + 3] = v.w;
+    }
+  }
+#pragma unroll 1
+  for (int k = t;; k >>= 1) {
+    if (j < k) {
+      init_state(st);
+      compress(st, w);
+      compress_pad512(st);
+      store_digest(level + (tree * k + j) * 8, st);
+    }
+    if (k == 1) break;
+    __syncthreads();  // the level below has been read from buf
+    if (j < k) {
+      buf[2 * j] = make_uint4(st[0], st[1], st[2], st[3]);
+      buf[2 * j + 1] = make_uint4(st[4], st[5], st[6], st[7]);
+    }
+    __syncthreads();
+    if (j < k / 2) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint4 v = buf[4 * j + q];
+        w[4 * q + 0] = v.x;
+        w[4 * q + 1] = v.y;
+        w[4 * q + 2] = v.z;
+        w[4 * q + 3] = v.w;
+      }
+    }
+    level += trees * k * 8;
+  }
+}
+
 constexpr int kThreads = 256;
 
 unsigned blocks_for(int64_t n) {
@@ -87,5 +175,22 @@ extern "C" int zk_sha256_node(const uint32_t* children, uint32_t* out, int64_t k
                               cudaStream_t stream) {
   if (k < 0 || k > 0x7fffffffLL * kThreads) return static_cast<int>(cudaErrorInvalidValue);
   if (k > 0) sha256_node<<<blocks_for(k), kThreads, 0, stream>>>(children, out, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The top of `trees` Merkle trees in one launch. in: (trees, 2t, 8) digests,
+// or with from_values (trees, 2t) residues, 8-byte aligned; t a power of two,
+// 1 <= t <= 1024. out: the levels back to back, each (trees, k, 8): with
+// from_values the 2t leaf digests first, then k = t, t/2, ..., 1.
+extern "C" int zk_sha256_tree_tail(const uint32_t* in, uint32_t* out, int64_t trees, int t,
+                                   int from_values, cudaStream_t stream) {
+  if (trees < 0 || trees > 0x7fffffffLL || t < 1 || t > kTailMax || (t & (t - 1)) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (trees > 0) {
+    const unsigned threads = static_cast<unsigned>(t < 32 ? 32 : t);
+    sha256_tree_tail<<<static_cast<unsigned>(trees), threads, 0, stream>>>(in, out, t,
+                                                                           from_values);
+  }
   return static_cast<int>(cudaGetLastError());
 }

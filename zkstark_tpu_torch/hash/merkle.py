@@ -3,8 +3,11 @@ device — counterpart of ``zkstark_tpu/hash/merkle.py``.
 
 Every level is row-major (k, 8), or (B, k, 8) for B trees built in lockstep
 (`build_levels_batch`), in natural order: adjacent digest rows are
-exactly a node's left‖right message, so each level is one
-`sha256_kernel.node_hash_pairs` call on the level below. Leaf encoding
+exactly a node's left‖right message, so each wide level is one
+`sha256_kernel.node_hash_pairs` call on the level below, and from
+`sha256_kernel.TAIL_PARENTS` parents a tree down to the root the levels are
+one `sha256_kernel.tree_tail` call (a tree of at most twice that many values
+is one call, leaf hashes included). Leaf encoding
 (big-endian u32, merkle.rs:30-34), node order (left‖right, merkle.rs:42-45),
 auth-path order (leaf→root siblings, merkle.rs:54-71) and the index-parity
 walk of compute_root_from_path (merkle.rs:82-110) are the reference's.
@@ -24,18 +27,26 @@ from zkstark_tpu_torch.ops import sha256_kernel
 
 def build_levels_batch(values: torch.Tensor) -> list:
     """B trees in lockstep from (B, n) uint32 residues, n a power of two:
-    [leaves (B, n, 8), …, roots (B, 1, 8)]. Each level is one kernel call on
-    the flat (B·k) hash axis: n is even, so children 2j and 2j+1 of any parent
-    lie in one tree and pairs never cross trees."""
+    [leaves (B, n, 8), …, roots (B, 1, 8)]. Each wide level is one kernel
+    call on the flat (B·k) hash axis: n is even, so children 2j and 2j+1 of
+    any parent lie in one tree and pairs never cross trees. The narrow levels
+    (the whole tree, if it is small) are one call for all B trees."""
     bsz, n = values.shape
     assert n >= 1 and n & (n - 1) == 0
+    tail = 2 * sha256_kernel.TAIL_PARENTS  # children a tree the tail call takes
     flat = fp.as_u32(fp.as_i32(values).reshape(bsz * n))
+    if 2 <= n <= tail:
+        if flat.data_ptr() % 8:  # a view at an odd word: the kernel reads pairs
+            flat = flat.clone()
+        return sha256_kernel.tree_tail(flat, bsz, from_values=True)
     level = sha256_kernel.leaf_hash(flat)
     levels = [level.reshape(bsz, n, 8)]
-    while n > 1:
+    while n > tail:
         n //= 2
         level = sha256_kernel.node_hash_pairs(level)
         levels.append(level.reshape(bsz, n, 8))
+    if n > 1:
+        levels += sha256_kernel.tree_tail(level, bsz)
     return levels
 
 

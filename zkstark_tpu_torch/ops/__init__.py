@@ -18,6 +18,7 @@ def launch_counts() -> dict:
     return {
         "sha256_leaf": sha256_kernel.leaf_launches,
         "sha256_node": sha256_kernel.node_launches,
+        "sha256_tree_tail": sha256_kernel.tail_launches,
         "ntt_rows": ntt_kernel.ntt_launches,
         "transpose": ntt_kernel.transpose_launches,
         "ntt_rows_pease": ntt_kernel.pease_launches,
@@ -31,6 +32,7 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     sha256_kernel.leaf_launches = 0
     sha256_kernel.node_launches = 0
+    sha256_kernel.tail_launches = 0
     ntt_kernel.ntt_launches = 0
     ntt_kernel.transpose_launches = 0
     ntt_kernel.pease_launches = 0

@@ -37,6 +37,8 @@ _SIGNATURES = {
     "zk_sha256_leaf": (_P, _P, _I64, _P),
     # (children, out, k, stream)
     "zk_sha256_node": (_P, _P, _I64, _P),
+    # (in, out, trees, t, from_values, stream)
+    "zk_sha256_tree_tail": (_P, _P, _I64, _INT, _INT, _P),
     # (x, out, pass_tw, log_m, batch, valid, w8, w4, w8^3,
     #  pre: a, b, shift, col_stride, row_stride, post: the same five,
     #  ut, vt, log2(vblk), scale, has_scale, p, p_inv_neg, stream)

@@ -29,11 +29,13 @@ suspected of failing below 2^25; the sum it feeds REDC is this same V, so no
 field is refused here, and ``tests/test_torch_limb_dft.py`` holds primes down
 to 257 against exact integers.) The inputs need not even be reduced below p.
 
-The kernel runs one block per row with the row in shared memory; both
-stages are ``mma.sync.m16n8k32`` u8 × u8 → s32 tensor-core products whose B
-fragments are the data words themselves (a u32 word is its four limbs,
-packed), with the limb split, the recombination, the REDC and the in-row
-twiddle inside the kernel: no limb tensor ever reaches device memory. Its
+The kernel keeps a row in shared memory; both stages are
+``wgmma.mma_async.m64nNk32`` u8 × u8 → s32 tensor-core products with the limb
+matrix as the A operand (streamed tile by tile through a ring in shared
+memory, `_tile_words`) and the data words themselves as the B operand (a u32
+word is its four limbs, packed), with the limb split, the recombination, the
+REDC and the in-row twiddle inside the kernel: no limb tensor ever reaches
+device memory. Its
 contract is `ntt_kernel.ntt_rows`' (a short valid prefix, ``pre`` on load,
 ``uv``, ``post`` and ``scale`` on store), so the four-step glue does not
 change with the route. On a CPU tensor `limb_dft_rows` runs
@@ -100,25 +102,40 @@ def _col_twiddle(k1: int, k2: int, w: int, field: Field = FIELD101) -> np.ndarra
     return field.host_to_mont(field.host_vandermonde(rows, k2))
 
 
+TILE_PAIR_ROWS = 32  # outputs i of one tile pair: 2 tiles x 64 rows (c, i)
+
+
 @functools.lru_cache(maxsize=None)
-def _fragment_words(k: int, w: int, field: Field = FIELD101) -> np.ndarray:
-    """`_limb_matrix` as the kernel reads it: flat uint32, one 16-byte load
-    per lane and k-step.
+def _tile_words(k: int, w: int, field: Field = FIELD101) -> np.ndarray:
+    """`_limb_matrix` as the kernel reads it: flat uint32, tile by tile in the
+    shared-memory layout of a ``wgmma`` A operand, so that a run of k-steps of
+    a tile pair is one contiguous block for one bulk copy.
 
     The contraction index is reordered to 4·j + a, so that four neighbouring
     bytes of a matrix row pair with the four limbs of one data word:
-    AW[c, i, j] = Σ_a A[k·c+i, k·a+j]·2^{8a}. The rows are padded with zeros
-    to a multiple of 16 (one ``m16n8k32`` tile), and the words are laid out
-    in the instruction's A-fragment order, [i-block][k-step][c][lane][r]:
-    lane = 4·g + tg holds AW[c, 16·ib + g + 8·(r & 1), 8·ks + tg + 4·(r >> 1)]."""
+    AW[c, i, j] = Σ_a A[k·c+i, k·a+j]·2^{8a}. The outputs i are padded with
+    zero rows to a multiple of 32 (one tile pair). The words are laid out as
+    [pair p][k-step ks][tile T][row group rg][K chunk kc][row r8][word jq]:
+
+      * a k-step is 8 words j = 8·ks + 4·kc + jq (32 contraction bytes), two
+        K chunks of 16 bytes;
+      * a tile is 64 rows in 8 groups of 8; row 8·rg + r8 of tile T of pair p
+        is (c, i) = (2·T + rg mod 2, 32·p + 8·(rg div 2) + r8): the thread
+        that holds accumulator rows g and g + 8 of both tiles of a pair holds
+        T_0..T_3 of output i = 32·p + 8·warp + g;
+      * a core matrix (8 rows x 16 bytes, one (rg, kc)) is 128 contiguous
+        bytes; the two K chunks of a row group lie 128 bytes apart, row groups
+        256 bytes, tiles 2048, k-steps 4096."""
     a = _limb_matrix(k, w, field).astype(np.uint32).reshape(4, k, 4, k)  # [c, i, a, j]
     aw = (a << (8 * np.arange(4, dtype=np.uint32))[None, None, :, None]).sum(axis=2, dtype=np.uint32)
-    kp = max(k, 16)
+    pairs = -(-k // TILE_PAIR_ROWS)
+    kp = pairs * TILE_PAIR_ROWS
     if kp > k:
         aw = np.concatenate([aw, np.zeros((4, kp - k, k), dtype=np.uint32)], axis=1)
-    # [c, ib, h, g, ks, q, tg] -> [ib, ks, c, g, tg, q, h]; r = 2·q + h
-    frag = aw.reshape(4, kp // 16, 2, 8, k // 8, 2, 4).transpose(1, 4, 0, 3, 6, 5, 2)
-    return np.ascontiguousarray(frag).reshape(-1)
+    # c = 2·T + h, i = 32·p + 8·wq + r8, j = 8·ks + 4·kc + jq; rg = 2·wq + h
+    # [T, h, p, wq, r8, ks, kc, jq] -> [p, ks, T, wq, h, kc, r8, jq]
+    tiles = aw.reshape(2, 2, pairs, 4, 8, k // 8, 2, 4).transpose(2, 5, 0, 3, 1, 6, 4, 7)
+    return np.ascontiguousarray(tiles).reshape(-1)
 
 
 def _recombine(t: torch.Tensor, field: Field) -> torch.Tensor:
@@ -173,13 +190,13 @@ def limb_dft_rows_plain(
 
 @functools.lru_cache(maxsize=64)
 def _device_constants(m: int, w: int, field: Field, device: torch.device):
-    """The two fragment-ordered limb matrices and the in-row twiddle of a
+    """The two tile-ordered limb matrices and the in-row twiddle of a
     length-m transform with root w, on `device`, uploaded once."""
     k1, k2 = ntt_kernel.split(m)
     p = field.p
     return (
-        fp.from_host(_fragment_words(k1, pow(w, k2, p), field), device),
-        fp.from_host(_fragment_words(k2, pow(w, k1, p), field), device),
+        fp.from_host(_tile_words(k1, pow(w, k2, p), field), device),
+        fp.from_host(_tile_words(k2, pow(w, k1, p), field), device),
         fp.from_host(_col_twiddle(k1, k2, w, field).reshape(-1), device),
     )
 

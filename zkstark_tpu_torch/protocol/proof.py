@@ -24,3 +24,15 @@ class Proof:
         if len(raw) < 32:
             raise ValueError("proof blob shorter than a channel state")
         return cls(state=raw[:32], data=raw[32:])
+
+
+def expected_proof_len(cfg) -> int:
+    """The length of a proof's transcript from the proof layout: the roots
+    (32 B each), the free term and every drawn challenge (4 B each), and per
+    query the trace openings, the composition opening (a value and a path: 4
+    + 8 + 32·depth) and one pair per FRI layer (two values, two paths)."""
+    depth = cfg.eval_domain.bit_length() - 1
+    rounds, q = cfg.fri_rounds, cfg.n_queries
+    opening = (len(cfg.air.shifts) + 1) * (4 + 8 + 32 * depth)
+    pairs = sum(8 + 2 * (8 + 32 * (depth - layer)) for layer in range(rounds))
+    return 32 * (2 + rounds) + 4 + 4 * (cfg.n_constraints + rounds + q) + q * (opening + pairs)

@@ -57,7 +57,42 @@ _HOST_CONST_MAX = 1 << 20
 _CONST_CHUNK = 1 << 22
 
 
-@functools.lru_cache(maxsize=4)
+# Bytes of inverse denominators that stay cached (`composition_constants`):
+# eight statements of 2^24 points and two constraints, or one of 2^27.
+_CONST_CACHE_BYTES = 1 << 30
+
+
+class _ByteBoundedCache:
+    """Memoises `fn(cfg, device)` → tensor, least recently used first out,
+    bounded by the tensors' bytes and not by their count: after a call, the
+    oldest entries go until the rest fit `_CONST_CACHE_BYTES` (read at every
+    call) or only the newest is left, which always stays, whatever its size,
+    so that warm proves of one statement never rebuild it."""
+
+    def __init__(self, fn):
+        self._fn = fn
+        self._entries = {}  # insertion order is recency order
+        functools.update_wrapper(self, fn)
+
+    def __call__(self, cfg, device):
+        key = (cfg, device)
+        if key in self._entries:
+            value = self._entries.pop(key)
+        else:
+            value = self._fn(cfg, device)
+        self._entries[key] = value
+        while len(self._entries) > 1 and self.cached_bytes() > _CONST_CACHE_BYTES:
+            del self._entries[next(iter(self._entries))]
+        return value
+
+    def cached_bytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self._entries.values())
+
+    def cache_clear(self) -> None:
+        self._entries.clear()
+
+
+@_ByteBoundedCache
 def composition_constants(cfg: StarkConfig, device) -> torch.Tensor:
     """One inverse denominator per constraint and point of the coset domain,
     in alpha order, as one (n_constraints, d) uint32 Montgomery tensor on
@@ -71,14 +106,16 @@ def composition_constants(cfg: StarkConfig, device) -> torch.Tensor:
     polynomial divisions (prover.rs:101-151).
 
     Kept per (config, device), 4 bytes per constraint and point (1 GB at 2^27
-    points and two constraints): above 2^20 points building them is a Fermat
-    inversion of the whole domain on the device (about 0.6 s at 2^24 points on
-    an NVIDIA H100, ten times the rest of a proof's device work), and below,
-    uploading them would make every prove wait for the device. The four most
-    recent entries stay; a process that walks through many big statements
-    frees them with ``composition_constants.cache_clear()``. The domain xs
-    itself is not kept: the composition kernel takes x_j from two small
-    tables (`coset_domain` builds the vector for the plain version)."""
+    points and two constraints, 2 GB at 2^28): above 2^20 points building them
+    is a Fermat inversion of the whole domain on the device (about 0.6 s at
+    2^24 points on an NVIDIA H100, ten times the rest of a proof's device
+    work), and below, uploading them would make every prove wait for the
+    device. The cache is bounded by bytes (`_ByteBoundedCache`,
+    `_CONST_CACHE_BYTES`), so a process that walks up through big statements
+    holds one big entry at a time; ``composition_constants.cache_clear()``
+    frees them all. The domain xs itself is not kept: the composition kernel
+    takes x_j from two small tables (`coset_domain` builds the vector for the
+    plain version)."""
     if cfg.eval_domain <= _HOST_CONST_MAX:
         return fp.from_host(np.stack(_composition_constants_host(cfg)["inv_dens"]), device)
     return _composition_constants_device(cfg, device)

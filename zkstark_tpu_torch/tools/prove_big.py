@@ -11,7 +11,9 @@ route; past 2^26 points it is the limb-matrix transform of
 ``ops/limb_dft.py``. Prints one JSON line per step: the witness, the cold
 prove (with its phase spans and the peak device memory so far, so that a run
 that later dies of memory has left its peak), then the metric ``prove_latency_2e<bits+3>``, the best of --repeats
-warm proves. Each prove ends when its proof bytes are on the host, so the
+warm proves, with the results of both verifiers (the port's and the C++ one
+of ``native/``) and of the check of the proof's length against the proof
+layout. Each prove ends when its proof bytes are on the host, so the
 host clock needs no extra device synchronisation. ``--device cpu`` runs the
 kernels' plain-torch twins.
 """
@@ -34,10 +36,15 @@ def _print(rec: dict) -> None:
 
 def run(trace_bits: int = 21, blowup: int = 8, queries: int = 1, repeats: int = 2,
         device="cuda", emit=_print):
-    """Prove and verify the statement; returns (proof, cfg, metric record)."""
+    """Prove the statement and check the proof three ways (the port's
+    verifier, the C++ verifier, its length against the proof layout); returns
+    (proof, cfg, metric record). A check that fails raises, the layout check
+    after the record that shows it has been emitted."""
+    from zkstark_tpu_torch.native import verify_native
     from zkstark_tpu_torch.protocol import prove, verify
     from zkstark_tpu_torch.protocol.air import SQUARE_CHAIN
     from zkstark_tpu_torch.protocol.config import StarkConfig
+    from zkstark_tpu_torch.protocol.proof import expected_proof_len
     from zkstark_tpu_torch.protocol.prover import resolve_device
 
     dev = resolve_device(device)
@@ -79,13 +86,22 @@ def run(trace_bits: int = 21, blowup: int = 8, queries: int = 1, repeats: int = 
     t0 = time.perf_counter()
     verify(proof, cfg)
     vs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    verify_native(proof, cfg)
+    native_vs = time.perf_counter() - t0
+    layout_bytes = expected_proof_len(cfg)
     rec = {
         "metric": f"prove_latency_2e{trace_bits + 3}",
         "value": round(best, 4),
         "unit": "seconds",
         "points_per_sec": round(cfg.eval_domain / best),
+        "verified": True,
         "verify_seconds": round(vs, 4),
+        "verified_native": True,
+        "verify_native_seconds": round(native_vs, 4),
         "proof_bytes": len(proof.data),
+        "layout_bytes": layout_bytes,
+        "layout_ok": len(proof.data) == layout_bytes,
         "trace_bits": trace_bits,
         "queries": queries,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
@@ -93,6 +109,8 @@ def run(trace_bits: int = 21, blowup: int = 8, queries: int = 1, repeats: int = 
     if dev.type == "cuda":
         rec["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
     emit(rec)
+    if not rec["layout_ok"]:
+        raise AssertionError(f"the proof has {len(proof.data)} bytes, its layout gives {layout_bytes}")
     return proof, cfg, rec
 
 

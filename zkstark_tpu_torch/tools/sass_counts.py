@@ -95,13 +95,14 @@ def main(argv=None) -> int:
         Path(args.dump).mkdir(parents=True, exist_ok=True)
     for name, instrs in parse(sass).items():
         short = next((k for k in ("ntt_rows_pease_kernel", "ntt_rows_kernel", "transpose_kernel",
-                                  "sha256_leaf", "sha256_node", "fp_check_kernel",
+                                  "sha256_leaf", "sha256_node", "sha256_tree_tail",
+                                  "fp_check_kernel",
                                   "fs_chain_kernel", "fri_fold_kernel", "limb_dft_rows_kernel",
                                   "composition_kernel") if k in name),
                      name)
-        instance = re.search(r"kernelIL[ib](\d+)E", name)  # a template instance: its argument
+        instance = re.search(r"kernelI((?:L[ib]\d+E)+)E", name)  # a template instance: its arguments
         if instance:
-            short += f"<{instance.group(1)}>"
+            short += f"<{','.join(re.findall(r'L[ib](\d+)E', instance.group(1)))}>"
         print(json.dumps({"kernel": short, **summarize(instrs)}), flush=True)
         if args.dump:
             lines = [f"/*{a:04x}*/ {op}{rest};" for a, op, rest in instrs]
