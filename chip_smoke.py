@@ -23,7 +23,12 @@ Phases, one output line (or a few) each:
      at 4096 x 4096, each fused option once, both primes; `composition`
      against `composition_eval_plain` for the three AIRs at 2^13 and for
      square-chain at 2^24, B = 1 and 3; `coset_ntt` at 2^27 timed and under
-     the profiler like the 2^25 call;
+     the profiler like the 2^25 call; the kernels of the fused core's former
+     plain-torch glue, `from_mont` (f_eval at 2^24, 2^13, 2^25),
+     `endpoint_fix` (the INTT sizes 2^21, 2^10, 2^25, and B = 32 at 2^10),
+     `constants` (2^24 square-chain and fibonacci-sq, stark-101) and
+     `openings` (stark-101 at B = 1 and 32, one 2^24 proof, shard 3 of 8
+     at 2^24), each with its device time under torch.profiler;
   4. stark-101 proved on the card: the golden 7,836-byte transcript and
      final state, accepted by the port's verifier and the C++ verifier, every
      kernel launched, the Merkle trees in at most 20 node and tail launches;
@@ -43,7 +48,11 @@ Phases, one output line (or a few) each:
      the golden transcript and ``prove(fused=False)``, both verifiers accept,
      the fused core runs under ``torch.cuda.set_sync_debug_mode("error")``
      (no call that waits for the device), warm times of both paths, and the
-     device's busy share of one profiled fused prove;
+     device's busy share of one profiled fused prove, which makes at most
+     `MAX_STARK101_SPANS` device spans; its first prove (composition
+     constants built cold) is the main-path run whose launches of the glue
+     kernels are counted; `_plain_loops` shows no plain-torch launch left in
+     the interpolation, `from_mont` and the openings (also phase 11, at 2^24);
  10. batched: ``prove_batch`` of B = 32 and B = 64 stark-101 witnesses, every
      proof the golden one, proofs per second; ``prove_batch_pipelined`` over
      4 batches of 32; B = 4 at the 2^16 statement equals phase 5's bytes (the
@@ -70,7 +79,9 @@ Phases, one output line (or a few) each:
      Phase 3 also holds the arguments the sharded prover added (`transpose`
      with block elements, `composition` on a shard with its halo) against
      their twins, and times `fri_fold` on the device at 2^24 and 2^21;
- 14. the kernel JSON line, the wall time, then the result line.
+ 14. ``tools.scaling_bench`` at 2^24 points over local meshes of 1, 2, 4 and
+     8 shards, two warm repeats each, the same roots at every S;
+ 15. the wall time, the kernel JSON line, then the result line.
 
 Every phase that proves checks the launch counters of its own route.
 
@@ -157,7 +168,21 @@ SRC = {
     "fri_fold": ("zkstark_tpu_torch/csrc/fri_fold.cu", "zkstark_tpu/protocol/prover.py:255"),
     "limb_dft_rows": ("zkstark_tpu_torch/csrc/limb_dft.cu", "zkstark_tpu/ops/mxu_ntt.py:154"),
     "composition": ("zkstark_tpu_torch/csrc/composition.cu", "zkstark_tpu/protocol/prover.py:213"),
+    "openings": ("zkstark_tpu_torch/csrc/openings.cu", "zkstark_tpu/protocol/fused.py:267"),
+    "endpoint_fix": ("zkstark_tpu_torch/csrc/endpoint_fix.cu", "zkstark_tpu/protocol/air.py:423"),
+    "from_mont": ("zkstark_tpu_torch/csrc/from_mont.cu", "zkstark_tpu/parallel/pipeline.py:64"),
+    "constants": ("zkstark_tpu_torch/csrc/constants.cu", "zkstark_tpu/protocol/prover.py:53"),
 }
+# the kernels of the fused core's former plain-torch glue, driven by the main
+# path: `prove(STARK101)` (phase 9), which builds its composition constants cold
+GLUE_KERNELS = ("openings", "endpoint_fix", "from_mont", "constants")
+# the plain-torch loops the glue kernels replaced (`_plain_loops`), which must
+# launch nothing but the port's kernels
+PLAIN_LOOPS = ("interpolate_rank1_fix", "from_mont_f_eval", "opening_gathers")
+# the most device spans (kernels and copies) of one profiled stark-101 fused prove
+MAX_STARK101_SPANS = 120
+# csrc/constants.cu: the points a thread inverts with one Fermat inversion
+CONST_TILE = 8
 
 
 def say(*parts):
@@ -489,6 +514,7 @@ def phase3_kernels() -> dict:
     rows.update(phase3_chain_and_fold())
     rows.update(phase3_serial_kernels(rows["fs_chain"]))
     rows.update(phase3_limb_and_composition())
+    rows.update(phase3_glue_kernels())
     phase3_shard_contracts()
     phase3_lde()
     return rows
@@ -810,6 +836,151 @@ def phase3_limb_and_composition() -> dict:
     return rows
 
 
+def _random_trees(gen: torch.Generator, lead: tuple, sizes) -> tuple:
+    """Random values lead + (n,) and digest levels lead + (k, 8), k = n … 1,
+    for each tree size n, made on the card from `gen`: (values, levels)."""
+    from zkstark_tpu_torch.field import fp
+
+    def u32(shape):
+        return fp.narrow(torch.randint(0, 1 << 32, shape, generator=gen, dtype=torch.int64,
+                                       device="cuda"))
+
+    values, levels = [], []
+    for n in sizes:
+        values.append(u32(lead + (n,)))
+        levels.append([u32(lead + (n >> k, 8)) for k in range(n.bit_length())])
+    return values, levels
+
+
+def phase3_glue_kernels() -> dict:
+    """The four kernels that replaced the fused core's plain-torch glue
+    (`openings`, `endpoint_fix`, `from_mont`, `constants`) against their plain
+    twins (tolerance 0) at the prove path's shapes, each with its device time
+    under torch.profiler beside the wrapper's CUDA-event time (at these sizes
+    mostly the host's enqueue) and its bound; no one PyTorch call computes any
+    of them: no library time. The table's row of each is the first shape."""
+    from zkstark_tpu_torch.field import fp
+    from zkstark_tpu_torch.ops import constants, elementwise
+    from zkstark_tpu_torch.ops import openings as open_op
+    from zkstark_tpu_torch.protocol import openings
+    from zkstark_tpu_torch.protocol import prover as pr
+    from zkstark_tpu_torch.protocol.air import AIRS
+    from zkstark_tpu_torch.protocol.config import STARK101, StarkConfig
+
+    rng = np.random.default_rng(39)
+    gen = torch.Generator(device="cuda").manual_seed(39)
+    rows = {}
+
+    def row(name: str, label: str, kernel, plain, limit: dict, kernel_name: str) -> None:
+        r = _compare(name, label, kernel, plain, limit)
+        table = name not in rows
+        dev_ms = device_ms(kernel, kernel_name, 20, required=table)
+        say(f"phase3 {name} {label} {_device_line(dev_ms, r['ms'], limit)} library=none")
+        if table:
+            rows[name] = dict(r, ms=dev_ms, wrapper_ms=r["ms"])
+
+    # from_mont: f_eval of the 2^24 statement, of stark-101, of 2^25; 4 bytes
+    # read and written a word, one REDC (5 ops) a word
+    for n in (1 << 24, 8192, 1 << 25):
+        x = fp.from_host(rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32), "cuda")
+        row("from_mont", f"n={n}", lambda: elementwise.from_mont(x),
+            lambda: elementwise.from_mont_plain(x), bound(8 * n, 5 * n), "from_mont_kernel")
+        del x
+
+    # endpoint_fix: the INTT sizes of the 2^24, stark-101 and 2^28 statements
+    # and a batch of 32 stark-101 proofs; 4 bytes read and written a word (and
+    # the two tables), two products and a subtract a word
+    fld = fp.FIELD101
+    for bsz, log_n in ((1, 21), (1, 10), (1, 25), (32, 10)):
+        n = 1 << log_n
+        c0 = fp.from_host(fld.host_to_mont(rng.integers(0, fld.p, (bsz, n), dtype=np.uint64)),
+                          "cuda")
+        tables = 4 * (n >> (log_n // 2)) + 4 * (1 << (log_n // 2))
+        row("endpoint_fix", f"B={bsz} n=2^{log_n}", lambda: elementwise.endpoint_fix(c0),
+            lambda: elementwise.endpoint_fix_plain(c0),
+            bound(8 * bsz * n + tables, bsz * n * (2 * FP_MUL + FP_SUB)), "endpoint_fix_kernel")
+        del c0
+
+    # constants: the 2^24 square-chain statement's (one boundary, one
+    # transition), stark-101's (two boundaries, one transition) and
+    # fibonacci-sq at 2^24; the tensor written once, and a point's x_j (two
+    # products), a boundary's subtract, three products and its share of the
+    # tile's Fermat inversion (32 squarings, a product a set bit of p - 2),
+    # a transition's subtract and product an exempt point
+    for cfg in (_square_chain_cfg(BIG_TRACE_BITS, BIG_SECRET), STARK101,
+                StarkConfig(trace_len=(1 << BIG_TRACE_BITS) - 1, boundary_first=1,
+                            boundary_last=1, air=AIRS["fibonacci-sq"])):
+        system = pr.constants_system(cfg)
+        d = cfg.eval_domain
+        fermat = 32 + bin(cfg.field.p - 2).count("1")
+        ops = 0
+        for kind, arg in system.constraints():
+            ops += (FP_SUB + 3 * FP_MUL + fermat * FP_MUL / CONST_TILE if kind == 0
+                    else len(arg) * (FP_SUB + FP_MUL))
+        row("constants", f"{cfg.air.name} d=2^{d.bit_length() - 1} "
+            f"constraints={cfg.n_constraints}",
+            lambda: constants.inverse_denominators(system, cfg.field, "cuda"),
+            lambda: constants.inverse_denominators_plain(system, cfg.field, "cuda"),
+            bound(4 * cfg.n_constraints * d, d * (2 * FP_MUL + ops)), "constants_kernel")
+        torch.cuda.empty_cache()
+
+    # openings: one stark-101 proof (the main path), a batch of 32, one proof
+    # at 2^24, and shard 3 of 8 at 2^24; each word of the
+    # result read once and written once (and the queries), the index rule a
+    # word (an and, an add, an and, a shift, an xor)
+    cases = ((STARK101, (1,), None), (STARK101, (32,), None),
+             (_square_chain_cfg(BIG_TRACE_BITS, BIG_SECRET), (1,), None),
+             (_square_chain_cfg(BIG_TRACE_BITS, BIG_SECRET), (1,), 8))
+    for cfg, lead, shards in cases:
+        d = cfg.eval_domain
+        values, levels = _random_trees(gen, lead, [d] + [d >> k for k in range(cfg.fri_rounds + 1)])
+        q = cfg.n_queries
+        idx = fp.from_host(rng.integers(0, cfg.query_range, lead + (q,), dtype=np.uint64)
+                           .astype(np.uint32), "cuda")
+        args = [values[0], levels[0], values[1:], levels[1:]]
+        kw = {}
+        if shards:  # the arrays of at least `shards` words or rows as shard 3's block
+            def block(a):
+                k = a.shape[1] // shards
+                return a if k < 1 else [a[0, t * k : (t + 1) * k].clone() for t in range(shards)]
+
+            args = [block(args[0]), [block(v) for v in args[1]], [block(v) for v in args[2]],
+                    [[block(v) for v in lv] for lv in args[3]]]
+            kw = dict(shard=3, block=3)
+        segs = openings.segments(cfg)
+        trees = openings._trees(cfg, *args)
+        words = sum(open_op.segment_words(g, trees, lead, q) for g in segs)
+        label = (f"{cfg.air.name} d=2^{d.bit_length() - 1} B={lead[0]} q={q} words={words}"
+                 + (f" shard 3/{shards}" if shards else ""))
+        want = openings.sparse_openings_packed(cfg, *args, idx, **kw)
+        if shards:  # shard 3's words are the solo result's where it owns them
+            solo = openings.sparse_openings_packed(cfg, values[0], levels[0], values[1:],
+                                                   levels[1:], idx)
+            mask = fp.as_i32(want) != 0
+            if (fp.as_i32(want)[mask] != fp.as_i32(solo)[mask]).any():
+                raise AssertionError(f"openings {label}: a word differs from the solo result")
+        row("openings", label, lambda: openings.sparse_openings_packed(cfg, *args, idx, **kw),
+            lambda: open_op.openings_plain(idx, trees if not shards else [
+                [open_op.Block(a[3]) if isinstance(a, list) else a for a in t] for t in trees],
+                segs, 3 if shards else None),
+            bound(8 * words + 4 * lead[0] * q, 5 * words), "openings_kernel")
+        # the wrapper's host part apart from its launch: the parameters it
+        # builds in every prove (segments cached, the pointer table not)
+        shard_trees = trees if not shards else [
+            [open_op.Block(a[3]) if isinstance(a, list) else a for a in t] for t in trees]
+        describe = lambda: open_op.describe(idx, shard_trees, segs, 3 if shards else None)  # noqa: E731
+        describe()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            describe()
+        say(f"phase3 openings {label} arrays={len(describe()[1])} "
+            f"describe_ms={(time.perf_counter() - t0) / 50 * 1e3:.4f} (host, the pointer table "
+            f"and the cached segments)")
+        del values, levels, args, trees, shard_trees
+    torch.cuda.empty_cache()
+    return rows
+
+
 def _device_line(dev_ms: float | None, wrapper_ms: float, limit: dict) -> str:
     """A kernel's profiled device time beside its wrapper's and its bound."""
     if dev_ms is None:
@@ -916,7 +1087,8 @@ def phase3_shard_contracts() -> None:
 
 OWN_KERNELS = ("ntt_rows_kernel", "transpose_kernel", "transpose_blocks_kernel", "ntt_rows_pease_kernel", "sha256_leaf",
                "sha256_node", "sha256_tree_tail", "fs_chain_kernel", "fri_fold_kernel", "limb_dft_rows_kernel",
-               "composition_kernel")
+               "composition_kernel", "openings_kernel", "endpoint_fix_kernel", "from_mont_kernel",
+               "constants_kernel")
 
 
 def phase3_lde() -> None:
@@ -1054,7 +1226,7 @@ def phase6_big():
     verify(proof, cfg)
     verify_s = time.perf_counter() - t0
     verify_native(proof, cfg)
-    require_launched(counts, (*DIT_KERNELS, "fri_fold"), "2^24")
+    require_launched(counts, (*DIT_KERNELS, "fri_fold", *GLUE_KERNELS), "2^24")
     require_one_composition(counts, "2^24")
     warm_timings = {}
     t0 = time.perf_counter()
@@ -1229,14 +1401,17 @@ def _device_busy(fn) -> dict:
 
 
 def _plain_loops(cfg, secret: int) -> dict:
-    """The plain-torch loops still on the prove path, each alone under
-    torch.profiler on this statement's tensors: its launches (device spans
-    that are not the port's own kernels, copies included) and their summed
-    device milliseconds. The interpolation's rank-1 fix is `interpolate_trace`
-    without its INTT kernel; the openings are gathered and packed as the fused
-    core does it."""
+    """The three groups that were plain-torch loops on the prove path before
+    the glue kernels, each alone under torch.profiler on this statement's
+    tensors (a window of 10 calls or more): its launches a call that are not
+    the port's own kernels (copies included) and their summed device
+    milliseconds, beside the launches of the port's kernels. The interpolation is `interpolate_trace` (its INTT
+    and the endpoint fix), `from_mont` the fused core's step on f_eval, the
+    openings the fused core's gathers into the packed vector. Raises unless
+    each group launches no plain torch."""
     from zkstark_tpu_torch import ntt
     from zkstark_tpu_torch.field import fp
+    from zkstark_tpu_torch.parallel import pipeline
     from zkstark_tpu_torch.protocol import air, openings
     from zkstark_tpu_torch.protocol import prover as pr
 
@@ -1250,16 +1425,38 @@ def _plain_loops(cfg, secret: int) -> dict:
     levels = [t.levels for t in art.layer_trees]
     groups = {
         "interpolate_rank1_fix": lambda: air.interpolate_trace(trace, cfg.trace_domain, fld),
-        "from_mont_f_eval": lambda: fp.from_mont_f(fld, f_eval),
-        "opening_gathers": lambda: openings.pack_tree(openings.sparse_openings_device(
-            cfg, art.f_res, art.f_tree.levels, art.layer_res, levels, idx)),
+        "from_mont_f_eval": lambda: pipeline.from_mont(cfg, f_eval),
+        "opening_gathers": lambda: openings.sparse_openings_device(
+            cfg, art.f_res, art.f_tree.levels, art.layer_res, levels, idx),
     }
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     out = {}
     for name, fn in groups.items():
         fn()
-        busy = _device_busy(fn)
-        out[name] = dict(launches=busy["plain_torch_spans"],
-                         device_ms=round(busy["plain_torch_busy_s"] * 1e3, 4))
+        torch.cuda.synchronize()
+        # a window of one short call may lose its spans: windows of several
+        # calls, longer ones if the profiler kept none, counted a call
+        for calls in (10, 30, 100):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            if events:
+                break
+        else:
+            raise AssertionError(f"torch.profiler recorded no device activity of {name}")
+        own = [e.time_range.elapsed_us() for e in events if any(k in e.name for k in OWN_KERNELS)]
+        plain = [e.time_range.elapsed_us() for e in events
+                 if not any(k in e.name for k in OWN_KERNELS)]
+        out[name] = dict(launches=len(plain) / calls, device_ms=round(sum(plain) / calls / 1e3, 5),
+                         own_kernel_launches=len(own) / calls,
+                         own_kernel_device_ms=round(sum(own) / calls / 1e3, 5), calls=calls)
+    plain = {name: out[name]["launches"] for name in PLAIN_LOOPS if out[name]["launches"]}
+    if plain:
+        raise AssertionError(f"plain-torch launches left in the glue groups: {plain}: {out}")
     return out
 
 
@@ -1277,11 +1474,17 @@ def _warm_min(fn, want, repeats: int, what: str) -> float:
     return best
 
 
-def phase9_fused_solo():
+def phase9_fused_solo() -> dict:
+    """The one-fetch path alone at stark-101; returns the launches of its
+    first fused prove, the main path's run that drives the glue kernels."""
     from zkstark_tpu_torch import STARK101, STARK101_SECRET, ops, prove, verify
     from zkstark_tpu_torch.native import verify_native
+    from zkstark_tpu_torch.protocol import prover as pr
 
     legacy = prove(STARK101, STARK101_SECRET, device="cuda", fused=False)
+    # the main path's run: its composition constants are built cold, so that
+    # every kernel of the path launches in it
+    pr.composition_constants.cache_clear()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     proof = prove(STARK101, STARK101_SECRET, device="cuda")
@@ -1291,7 +1494,7 @@ def phase9_fused_solo():
         raise AssertionError(f"fused stark-101 not golden: {len(proof.data)} B, {proof.state.hex()}")
     verify(proof, STARK101)
     verify_native(proof, STARK101)
-    require_launched(counts, (*ROW_KERNELS, *FUSED_KERNELS), "fused stark-101")
+    require_launched(counts, (*ROW_KERNELS, *FUSED_KERNELS, *GLUE_KERNELS), "fused stark-101")
     require_one_composition(counts, "fused stark-101")
     tree_launches = require_few_tree_launches(counts, "fused stark-101")
     if _guarded_core(STARK101, STARK101_SECRET) != proof:
@@ -1302,6 +1505,9 @@ def phase9_fused_solo():
     timings = {}
     prove(STARK101, STARK101_SECRET, device="cuda", timings=timings)
     busy = _device_busy(lambda: prove(STARK101, STARK101_SECRET, device="cuda"))
+    if busy["device_spans"] > MAX_STARK101_SPANS:
+        raise AssertionError(f"a stark-101 fused prove made {busy['device_spans']} device spans, "
+                             f"want <= {MAX_STARK101_SPANS}: {busy}")
     say(
         f"phase9 stark101 fused golden bytes={len(proof.data)} fused==host_synced verify=ok "
         f"native=ok sync_debug_mode=error:ok launches={json.dumps(counts)} "
@@ -1310,7 +1516,9 @@ def phase9_fused_solo():
         f"spans={json.dumps({k: round(v, 5) for k, v in timings.items()})} "
         f"profiled={json.dumps(busy)}"
     )
-    say(f"phase9 stark101 plain_loops={json.dumps(_plain_loops(STARK101, STARK101_SECRET))}")
+    say(f"phase9 stark101 plain_loops={json.dumps(_plain_loops(STARK101, STARK101_SECRET))} "
+        f"no plain launches in {list(PLAIN_LOOPS)}: ok")
+    return counts
 
 
 def phase10_batch(cfg16, proof16):
@@ -1392,7 +1600,8 @@ def phase11_pipelined(cfg24, proof24, host_synced_warm_s: float) -> dict:
             raise AssertionError("prove_pipelined 2^24: a proof differs from phase 6's")
     verify(proofs[-1], cfg24)
     verify_native(proofs[-1], cfg24)
-    require_launched(counts, (*DIT_KERNELS, *FUSED_KERNELS), "prove_pipelined 2^24")
+    require_launched(counts, (*DIT_KERNELS, *FUSED_KERNELS, "openings", "endpoint_fix", "from_mont"),
+                     "prove_pipelined 2^24")
     say(
         f"phase11 prove_pipelined square-chain 2^24 n=3 depth=2 bytes={len(proofs[0].data)} "
         f"==phase6 verify=ok native=ok sync_debug_mode=error:ok per_proof_s={stream_s / 3:.4f} "
@@ -1402,7 +1611,8 @@ def phase11_pipelined(cfg24, proof24, host_synced_warm_s: float) -> dict:
     )
     say(f"phase11 2^24 fused spans={json.dumps({k: round(v, 4) for k, v in spans.items()})} "
         f"profiled={json.dumps(busy)}")
-    say(f"phase11 2^24 plain_loops={json.dumps(_plain_loops(cfg24, BIG_SECRET))}")
+    say(f"phase11 2^24 plain_loops={json.dumps(_plain_loops(cfg24, BIG_SECRET))} "
+        f"no plain launches in {list(PLAIN_LOOPS)}: ok")
     return counts
 
 
@@ -1436,7 +1646,7 @@ def phase12_past_2e26() -> dict:
         raise AssertionError(f"prove_big's record does not show its three checks: {rec}")
     require_launched(counts, ("sha256_leaf", "sha256_node", "sha256_tree_tail", "ntt_rows",
                               "transpose", "fri_fold",
-                              "limb_dft_rows", "composition"), "prove_big 2^27")
+                              "limb_dft_rows", "composition", *GLUE_KERNELS), "prove_big 2^27")
     if counts["composition"] != 2:  # the cold prove and one warm prove
         raise AssertionError(f"prove_big 2^27: {counts['composition']} composition launches, want 2")
     warm = {}
@@ -1501,7 +1711,8 @@ def sharded_bytes(cfg, shards: int) -> dict:
     return out
 
 
-SHARDED_KERNELS = ("ntt_rows", "transpose", "composition", "fri_fold", "fs_chain")
+SHARDED_KERNELS = ("ntt_rows", "transpose", "composition", "fri_fold", "fs_chain", "openings",
+                   "endpoint_fix", "from_mont")
 
 
 def _sharded_prove(cfg, secret: int, shards: int, want, what: str) -> dict:
@@ -1649,6 +1860,22 @@ def phase13_sharded(proof24) -> dict:
     return main_counts
 
 
+def phase14_scaling_bench() -> list:
+    """`tools.scaling_bench` at 2^24 points over local meshes of 1, 2, 4 and 8
+    shards of the card, two warm repeats each (it raises unless every mesh
+    gives the same roots, free term and final layer); on one card its
+    scaling efficiency is the cost of S-fold launches, not scaling."""
+    from zkstark_tpu_torch.tools import scaling_bench
+
+    torch.cuda.empty_cache()
+    records = scaling_bench.run(24, devices=(1, 2, 4, 8), repeats=2, device="cuda",
+                                emit=lambda r: say("phase14 scaling_bench", json.dumps(r)))
+    if [r["devices"] for r in records] != [1, 2, 4, 8]:
+        raise AssertionError(f"scaling_bench printed {records}")
+    torch.cuda.empty_cache()
+    return records
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase0_device()
@@ -1665,19 +1892,23 @@ def main():
     with tempfile.TemporaryDirectory() as tmp_dir:
         launches = phase7_entry_points(tmp_dir)
         phase8_checkpoint(tmp_dir, cfg16, proof16)
-    phase9_fused_solo()
+    main_launches = phase9_fused_solo()
     phase10_batch(cfg16, proof16)
     fused_launches = phase11_pipelined(cfg24, proof24, warm24)
     sharded_launches = phase13_sharded(proof24)
     del proof24
+    phase14_scaling_bench()
     giant_launches = phase12_past_2e26()
     # the launches of a kernel are those of the main-path run that first drove
     # it: the 2^25 entry points (phase 7), the 2^24 pipelined stream (phase 11),
-    # the 2^27 prove_big run (phase 12)
+    # the 2^27 prove_big run (phase 12), the stark-101 fused prove with its
+    # constants built cold (phase 9)
     for name in FUSED_KERNELS:
         launches[name] = fused_launches[name]
     for name in ("limb_dft_rows", "composition"):
         launches[name] = giant_launches[name]
+    for name in GLUE_KERNELS:
+        launches[name] = main_launches[name]
     kernels = [
         {
             "name": name,
@@ -1694,6 +1925,7 @@ def main():
             "launches_one_fetch_2e24_stream": fused_launches[name],
             "launches_prove_big_2e27": giant_launches[name],
             "launches_sharded_2e24_s8": sharded_launches[name],
+            "launches_fused_stark101": main_launches[name],
         }
         for name in SRC
     ]

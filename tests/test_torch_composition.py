@@ -220,13 +220,15 @@ def test_composition_wrapper_checks_input():
 
 
 def test_big_domain_constants_in_chunks(monkeypatch):
-    """Above `_HOST_CONST_MAX` the inverse denominators are computed on the
-    device a chunk of the domain at a time: the same words as the exact host
-    version, and the same domain."""
+    """Above `_HOST_CONST_MAX` the inverse denominators are computed in
+    plain torch (the constants kernel's twin) a chunk of the domain at a
+    time: the same words as the exact host version, and the same domain."""
+    from zkstark_tpu_torch.ops import constants
+
     _, cfg = _configs("square-chain", tfp.P, 8)
     host = np.stack(tpr._composition_constants_host(cfg)["inv_dens"])
-    monkeypatch.setattr(tpr, "_CONST_CHUNK", 64)
-    _eq(tpr._composition_constants_device(cfg, "cpu"), host)
+    monkeypatch.setattr(constants, "_PLAIN_CHUNK", 64)
+    _eq(constants.inverse_denominators(tpr.constants_system(cfg), cfg.field, "cpu"), host)
     monkeypatch.setattr(tpr, "_HOST_CONST_MAX", 8)
     _eq(tpr.coset_domain(cfg, "cpu"), tpr._composition_constants_host(cfg)["xs"])
 

@@ -704,3 +704,101 @@ def test_sharded_prove_on_card(dev):
     for mesh in (make_mesh(1, device=dev), make_mesh(2, device=dev), make_mesh(8, device=dev),
                  make_host_chip_mesh(2, 4, device=dev)):
         assert prove(cfg, 271828, mesh=mesh) == want
+
+
+@FIELDS
+@pytest.mark.parametrize("n", [1, 3, 4, 1001, 1 << 20])
+def test_from_mont_kernel(dev, field, n):
+    from zkstark_tpu_torch.ops import elementwise
+
+    x = fp.from_host(_u32(n, n), dev)
+    before = elementwise.from_mont_launches
+    _eq(elementwise.from_mont(x, field), elementwise.from_mont_plain(x, field))
+    assert elementwise.from_mont_launches == before + 1
+    if n > 1:  # a view at an odd word: the one-word route
+        _eq(elementwise.from_mont(x[1:], field), elementwise.from_mont_plain(x[1:], field))
+
+
+@FIELDS
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("log_n", [1, 2, 4, 10, 14, 21])
+def test_endpoint_fix_kernel(dev, field, log_n, batch):
+    from zkstark_tpu_torch.ops import elementwise
+
+    c0 = _rand_mont(field, (batch, 1 << log_n), log_n, dev)
+    _eq(elementwise.endpoint_fix(c0, field), elementwise.endpoint_fix_plain(c0, field))
+
+
+@FIELDS
+@pytest.mark.parametrize("log_trace", [6, 10, 14])
+def test_interpolate_trace_on_card_equals_cpu(dev, field, log_trace):
+    from zkstark_tpu_torch.protocol import air
+
+    n = 1 << log_trace
+    trace = _rand_mont(field, (2, n - 1), log_trace, dev)
+    _eq(air.interpolate_trace(trace, n, field), air.interpolate_trace(trace.cpu(), n, field))
+
+
+@pytest.mark.parametrize("air_name", ["fibonacci-sq", "fibonacci", "square-chain"])
+@pytest.mark.parametrize("field", [fp.FIELD101, fp.FIELD_ALT], ids=["p101", "alt"])
+@pytest.mark.parametrize("blowup,trace_len", [(4, 63), (8, 1023), (16, 255), (8, (1 << 17) - 1)])
+def test_constants_kernel(dev, air_name, field, blowup, trace_len):
+    from zkstark_tpu_torch.ops import constants
+    from zkstark_tpu_torch.protocol import prover as pr
+    from zkstark_tpu_torch.protocol.air import AIRS
+    from zkstark_tpu_torch.protocol.config import StarkConfig
+
+    cfg = StarkConfig(field=field, air=AIRS[air_name], trace_len=trace_len, blowup=blowup,
+                      boundary_first=1, boundary_last=1, coset_offset=5 if field is fp.FIELD101 else 31)
+    system = pr.constants_system(cfg)
+    got = constants.inverse_denominators(system, field, dev)
+    _eq(got, constants.inverse_denominators_plain(system, field, dev))
+    if cfg.eval_domain <= 1 << 20:
+        _eq(got, pr.composition_constants(cfg, "cpu"))
+
+
+@pytest.mark.parametrize("q", [1, 3])
+@pytest.mark.parametrize("bsz", [0, 1, 3], ids=["solo", "B1", "B3"])
+def test_openings_kernel(dev, q, bsz):
+    from zkstark_tpu_torch.ops import openings as open_op
+    from zkstark_tpu_torch.protocol import openings
+    from zkstark_tpu_torch.protocol.config import StarkConfig
+
+    cfg = StarkConfig(trace_len=1023, boundary_first=1, boundary_last=1, n_queries=q)
+    lead = (bsz,) if bsz else ()
+    seed = iter(range(1000))
+
+    def tree(n):
+        vals = fp.from_host(_u32(lead + (n,), next(seed)), dev)
+        return vals, [fp.from_host(_u32(lead + (n >> k, 8), next(seed)), dev)
+                      for k in range(n.bit_length())]
+
+    f_res, f_levels = tree(cfg.eval_domain)
+    layers = [tree(cfg.eval_domain >> k) for k in range(cfg.fri_rounds + 1)]
+    layer_res, layer_levels = [v for v, _ in layers], [lv for _, lv in layers]
+    rng = np.random.default_rng(q + bsz)
+    idx = fp.from_host(rng.integers(0, cfg.query_range, lead + (q,), dtype=np.uint64)
+                       .astype(np.uint32), dev)
+    args = (cfg, f_res, f_levels, layer_res, layer_levels)
+    before = open_op.openings_launches
+    got = openings.sparse_openings_packed(*args, idx)
+    assert open_op.openings_launches == before + 1
+    def cpu(x):
+        return [cpu(t) for t in x] if isinstance(x, list) else x.cpu()
+
+    _eq(got, openings.sparse_openings_packed(cfg, *cpu(list(args[1:])), idx.cpu()))
+    if bsz == 1:  # four shards of a mesh, owner-masked, OR to the solo vector
+        def shard(a):
+            k = a.shape[1] // 4
+            return a if k < 1 else [a[0, s * k : (s + 1) * k].clone() for s in range(4)]
+
+        sharded = [shard(f_res), [shard(v) for v in f_levels], [shard(v) for v in layer_res],
+                   [[shard(v) for v in lv] for lv in layer_levels]]
+        merged = None
+        for s in range(4):
+            part = openings.sparse_openings_packed(cfg, *sharded, idx, shard=s, block=s)
+            part_cpu = openings.sparse_openings_packed(cfg, *cpu(sharded), idx.cpu(), shard=s,
+                                                       block=s)
+            _eq(part, part_cpu)
+            merged = part.view(torch.int32).clone() if merged is None else merged | part.view(torch.int32)
+        _eq(fp.as_u32(merged), got)

@@ -48,4 +48,7 @@ def test_package_is_covered():
     for new in ("__init__.py", "mesh.py", "ntt_sharded.py", "merkle_sharded.py",
                 "fri_sharded.py", "pipeline.py"):
         assert f"zkstark_tpu_torch/parallel/{new}" in names
-    assert len(names) >= 35
+    for new in ("ops/openings.py", "ops/elementwise.py", "ops/constants.py",
+                "tools/scaling_bench.py"):
+        assert f"zkstark_tpu_torch/{new}" in names
+    assert len(names) >= 39

@@ -93,7 +93,8 @@ def _transform(x: torch.Tensor, plan: NttPlan, scaled: bool, pre=None, post=None
         if x.dim() > 1:  # the four-step takes one flat vector: one proof at a time
             rows = fp.as_i32(x).reshape(-1, x.shape[-1]).unbind(0)
             outs = [fp.as_i32(_transform(fp.as_u32(r), plan, scaled, pre, post)) for r in rows]
-            return fp.as_u32(torch.stack(outs).reshape(x.shape[:-1] + (n,)))
+            whole = outs[0] if len(outs) == 1 else torch.stack(outs)  # one row: no copy
+            return fp.as_u32(whole.reshape(x.shape[:-1] + (n,)))
         return ntt_kernel.ntt_fourstep(
             fp.as_u32(fp.as_i32(x).contiguous()), n, w, scale, field,
             pre_offset=pre, post_offset=post,
@@ -121,10 +122,12 @@ def ntt(x: torch.Tensor, plan: NttPlan) -> torch.Tensor:
 
 def intt(x: torch.Tensor, plan: NttPlan) -> torch.Tensor:
     """x[j] = n^{-1}·Σ_k X[k]·ω^{-jk}; the plan must be an inverse plan. The
-    1/n is applied by the row kernel on store (below the four-step size) or
-    folded into the four-step twiddle table."""
+    last axis of x may be shorter than n: the missing tail is taken as zero
+    and is neither allocated nor read. The 1/n is applied by the row kernel
+    on store (below the four-step size) or folded into the four-step twiddle
+    table."""
     assert plan.scale_mont is not None, "intt needs a plan built with inverse=True"
-    assert x.shape[-1] == plan.n
+    assert 1 <= x.shape[-1] <= plan.n
     return _transform(x, plan, scaled=True)
 
 

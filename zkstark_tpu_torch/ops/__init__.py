@@ -6,10 +6,13 @@ per-kernel launch counters and `reset_launch_counts` zeroes them."""
 
 from zkstark_tpu_torch.ops import (
     composition,
+    constants,
+    elementwise,
     fri_fold,
     fs_chain,
     limb_dft,
     ntt_kernel,
+    openings,
     sha256_kernel,
 )
 
@@ -26,6 +29,10 @@ def launch_counts() -> dict:
         "fri_fold": fri_fold.fold_launches,
         "limb_dft_rows": limb_dft.limb_launches,
         "composition": composition.composition_launches,
+        "openings": openings.openings_launches,
+        "endpoint_fix": elementwise.endpoint_launches,
+        "from_mont": elementwise.from_mont_launches,
+        "constants": constants.constants_launches,
     }
 
 
@@ -40,3 +47,7 @@ def reset_launch_counts() -> None:
     fri_fold.fold_launches = 0
     limb_dft.limb_launches = 0
     composition.composition_launches = 0
+    openings.openings_launches = 0
+    elementwise.endpoint_launches = 0
+    elementwise.from_mont_launches = 0
+    constants.constants_launches = 0

@@ -72,6 +72,16 @@ _SIGNATURES = {
         _P, _P, _I64, _P, _P, _P, _INT, _INT, _P, _P, _INT, _U32, _P, _P, _I64, _I64, _I64,
         _I64, _U32, _U32, _P,
     ),
+    # (in, out, n, p, p_inv_neg, stream)
+    "zk_from_mont": (_P, _P, _I64, _U32, _U32, _P),
+    # (c0, out, geo_a, geo_b, geo_shift, g, batch, n, p, p_inv_neg, stream)
+    "zk_endpoint_fix": (_P, _P, _P, _P, _INT, _U32, _I64, _I64, _U32, _U32, _P),
+    # (words, n_words, ztab, zmask, geo_a, geo_b, geo_shift, offset, one, out, d,
+    #  p, p_inv_neg, stream); words is host memory
+    "zk_constants": (_P, _INT, _INT, _INT, _P, _P, _INT, _U32, _U32, _P, _I64, _U32, _U32, _P),
+    # (queries, out, total, batch, q, shard, segs, n_segs, arrays, n_arrays, stream);
+    # segs and arrays are host memory
+    "zk_openings": (_P, _P, _I64, _INT, _INT, _INT, _P, _INT, _P, _INT, _P),
     # (a, b, out, n, p, p_inv_neg, stream)
     "zk_fp_check": (_P, _P, _P, _I64, _U32, _U32, _P),
 }

@@ -18,8 +18,9 @@ here:
   * a fold is sharded while m/2 ≥ S (``parallel/fri_sharded.py``); below,
     the layer is gathered and folded whole, as the JAX package does;
   * the openings: each shard gathers the values and auth-path siblings it
-    owns (owner masks on the device), shard 0 those of whole levels, and one
-    `replicate` makes the packed result whole on every process.
+    owns in one launch (owner masks in the kernel), shard 0 those of whole
+    levels, and one `replicate` makes the packed result whole on every
+    process.
 
 `proof_core(cfg, mesh)` is phases 1–3 with the challenges as inputs.
 """
@@ -32,6 +33,7 @@ from zkstark_tpu_torch import ntt
 from zkstark_tpu_torch.field import fp
 from zkstark_tpu_torch.hash import merkle
 from zkstark_tpu_torch.ops import composition as comp_op
+from zkstark_tpu_torch.ops import elementwise
 from zkstark_tpu_torch.parallel.fri_sharded import fold_sharded
 from zkstark_tpu_torch.parallel.merkle_sharded import sharded_build_levels
 from zkstark_tpu_torch.parallel.mesh import Mesh
@@ -40,9 +42,9 @@ from zkstark_tpu_torch.protocol import air
 from zkstark_tpu_torch.protocol import prover as pr
 from zkstark_tpu_torch.protocol.config import StarkConfig
 from zkstark_tpu_torch.protocol.openings import (
-    map_leaves,
-    pack_tree,
+    opening_shapes,
     sparse_openings_device,
+    sparse_openings_packed,
     unpack_tree,
 )
 
@@ -55,9 +57,11 @@ def lde(cfg: StarkConfig, coeffs: torch.Tensor, mesh: Mesh | None):
 
 
 def from_mont(cfg: StarkConfig, value):
+    """The standard residues of a whole or sharded value (``ops/elementwise.py``:
+    one launch a tensor or block on a card)."""
     if isinstance(value, list):
-        return [fp.from_mont_f(cfg.field, b) for b in value]
-    return fp.from_mont_f(cfg.field, value)
+        return [elementwise.from_mont(b, cfg.field) for b in value]
+    return elementwise.from_mont(value, cfg.field)
 
 
 def build_levels(res, mesh: Mesh | None) -> list:
@@ -116,50 +120,19 @@ def whole(value, mesh: Mesh | None) -> torch.Tensor:
     return mesh.all_gather(value)[None] if isinstance(value, list) else value
 
 
-class _ShardGather:
-    """The opening gathers of one local shard, at (1, r) indices: values and
-    digests it owns (index ≫ log2(block) = shard), zeros elsewhere; whole
-    arrays are read by shard 0 alone."""
-
-    def __init__(self, mesh: Mesh, i: int):
-        self.i = i
-        self.shard = mesh.local[i]
-
-    def _owned(self, arr, idx, take):
-        if isinstance(arr, list):
-            blk = fp.as_i32(arr[self.i])[None]
-            k = blk.shape[1]
-            got = take(blk, idx & (k - 1))
-            own = (idx >> (k.bit_length() - 1)) == self.shard
-            return torch.where(own[..., None] if got.dim() > idx.dim() else own, got, 0)
-        got = take(fp.as_i32(arr), idx)
-        return got if self.shard == 0 else torch.zeros_like(got)
-
-    def vals(self, arr, idx: torch.Tensor) -> torch.Tensor:
-        return self._owned(arr, idx, lambda a, i: torch.take_along_dim(a, i, dim=-1))
-
-    def rows(self, level, idx: torch.Tensor) -> torch.Tensor:
-        return self._owned(
-            level, idx,
-            lambda a, i: torch.take_along_dim(a, i[..., None].expand(i.shape + (8,)), dim=-2),
-        )
-
-
 def openings(cfg: StarkConfig, f_res, f_levels, layer_res, layer_levels, queries,
              mesh: Mesh | None) -> dict:
     """`openings.sparse_openings_device` at the (B, q) queries. On a mesh:
-    each local shard's owned words, packed, made whole on every process by
-    one `replicate`, and unpacked into views of that vector."""
+    each local shard's owned words in one kernel launch, made whole on every
+    process by one `replicate`, and unpacked into views of that vector."""
     if mesh is None:
         return sparse_openings_device(cfg, f_res, f_levels, layer_res, layer_levels, queries)
-    parts, shapes = [], None
-    for i in range(len(mesh.local)):
-        out = sparse_openings_device(cfg, f_res, f_levels, layer_res, layer_levels, queries,
-                                     gather=_ShardGather(mesh, i))
-        if shapes is None:
-            shapes = map_leaves(out, lambda t: tuple(t.shape))
-        parts.append(pack_tree(out))
-    return unpack_tree(mesh.replicate(parts), shapes)
+    parts = [
+        sparse_openings_packed(cfg, f_res, f_levels, layer_res, layer_levels, queries,
+                               shard=shard, block=i)
+        for i, shard in enumerate(mesh.local)
+    ]
+    return unpack_tree(mesh.replicate(parts), opening_shapes(cfg, tuple(queries.shape[:-1])))
 
 
 def proof_core(cfg: StarkConfig, mesh: Mesh | None = None):

@@ -25,6 +25,7 @@ import torch
 from zkstark_tpu_torch import ntt
 from zkstark_tpu_torch.field import fp
 from zkstark_tpu_torch.field.fp import FIELD101, Field
+from zkstark_tpu_torch.ops import elementwise
 
 
 @dataclass(frozen=True)
@@ -314,42 +315,14 @@ def serialize_air(cfg) -> np.ndarray:
     return np.asarray(words, dtype=np.uint32)
 
 
-@functools.lru_cache(maxsize=None)
-def _endpoint_basis(n: int, field: Field = FIELD101):
-    """v = INTT(e_{n-1}), v[j] = n^{-1}·g^{-(n-1)j}, in Montgomery form, and
-    the Montgomery form of 1/v[n-1] (host numpy)."""
-    p = field.p
-    g = field.subgroup_generator(n)
-    g_inv = pow(g, p - 2, p)
-    n_inv = pow(n, p - 2, p)
-    base = pow(g_inv, n - 1, p)
-    v = (field.host_powers_pow2(base, n).astype(np.uint64) * n_inv % p).astype(
-        np.uint32
-    )
-    v_last_inv = pow(int(v[n - 1]), p - 2, p)
-    return field.host_to_mont(v), field.mont_scalar(v_last_inv)
-
-
-@functools.lru_cache(maxsize=16)
-def _endpoint_basis_device(n: int, field: Field, device: torch.device):
-    """`_endpoint_basis` with v on `device`, uploaded once."""
-    v, v_last_inv = _endpoint_basis(n, field)
-    return fp.from_host(v, device), v_last_inv
-
-
 def interpolate_trace(trace_mont: torch.Tensor, n: int, field: Field = FIELD101):
     """Coefficients (Montgomery form, natural order, degree ≤ n−2) of the
     unique polynomial through (g^i, trace[i]) for i < n−1 — the reference's
-    lagrange() output (prover.rs:60-61), as one INTT plus a rank-1 fix.
+    lagrange() output (prover.rs:60-61), as one INTT of the n − 1 points (the
+    missing point taken as 0, never allocated) plus the rank-1 endpoint fix
+    (``ops/elementwise.py`` `endpoint_fix`, one launch on a card).
     trace_mont is uint32 with a last axis of length n−1; leading axes are
     independent traces."""
     assert trace_mont.shape[-1] == n - 1
-    dev = trace_mont.device
-    tail = fp.as_i32(fp.zeros(trace_mont.shape[:-1] + (1,), dev))
-    padded = fp.as_u32(torch.cat([fp.as_i32(trace_mont), tail], dim=-1))
-    c0 = ntt.intt(padded, ntt.inverse_plan(n, field))
-    v, v_last_inv = _endpoint_basis_device(n, field, dev)
-    # choose the free endpoint a_{n-1} so that coefficient n−1 vanishes:
-    #   c0[n−1] + a_{n-1}·v[n−1] = 0
-    a_last = fp.mont_mul_f(field, fp.neg_f(field, c0[..., n - 1 :]), v_last_inv)
-    return fp.add_f(field, c0, fp.mont_mul_f(field, v, a_last))
+    c0 = ntt.intt(trace_mont, ntt.inverse_plan(n, field))
+    return elementwise.endpoint_fix(c0, field)

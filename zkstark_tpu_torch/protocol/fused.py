@@ -39,7 +39,7 @@ from zkstark_tpu_torch.ops import fs_chain
 from zkstark_tpu_torch.parallel import pipeline as pl
 from zkstark_tpu_torch.protocol import air
 from zkstark_tpu_torch.protocol.config import StarkConfig
-from zkstark_tpu_torch.protocol.openings import map_leaves, pack_tree, unpack_tree
+from zkstark_tpu_torch.protocol.openings import map_leaves, opening_shapes, pack_tree, unpack_tree
 from zkstark_tpu_torch.transcript import device_channel as dc
 
 
@@ -132,20 +132,14 @@ def fused_core(cfg: StarkConfig, trace_mont: torch.Tensor, mesh=None) -> dict:
 def out_shapes(cfg: StarkConfig, lead: tuple = ()) -> dict:
     """The shape of every leaf of `fused_core` (lead = ()) or
     `fused_core_batch` (lead = (B,)), from the config alone."""
-    q, shifts, rounds = cfg.n_queries, len(cfg.air.shifts), cfg.fri_rounds
-    depth = cfg.eval_domain.bit_length() - 1
+    rounds = cfg.fri_rounds
     return {
         "roots": lead + (2 + rounds, 8),
         "alphas": lead + (cfg.n_constraints,),
         "betas": lead + (rounds,),
         "free_term": lead,
-        "queries": lead + (q,),
-        "open_f_vals": lead + (q, shifts),
-        "open_f_paths": lead + (q, shifts, depth, 8),
-        "open_cp_vals": lead + (q,),
-        "open_cp_paths": lead + (q, depth, 8),
-        "open_fri_vals": [lead + (q, 2) for _ in range(rounds)],
-        "open_fri_paths": [lead + (q, 2, depth - layer, 8) for layer in range(rounds)],
+        "queries": lead + (cfg.n_queries,),
+        **opening_shapes(cfg, lead),
     }
 
 

@@ -4,23 +4,27 @@
 
 The opened values and the auth-path sibling digests are gathered on the
 device and fetched in one transfer of a few KB; the Merkle levels (about
-3 GB at a 2^24 domain) never leave the device.
+3 GB at a 2^24 domain) never leave the device. On a card the gathers are one
+launch of the kernel behind ``ops/openings.py``, which writes them straight
+into one flat vector in `pack_tree`'s layout (`sparse_openings_packed`; the
+sharded prover calls it once a local shard, ``parallel/pipeline.py``).
 
 `sparse_openings_device` takes the query indices as a device tensor of any
-leading batch shape and returns device tensors, so the fused core
-(``protocol/fused.py``) never waits for the host; its `gather` decides how a
-value or a digest row is read (the sharded prover passes one that reads
-the words a shard owns, ``parallel/pipeline.py``); `pack_tree` / `unpack_tree`
+leading batch shape and returns views of that vector, so the fused core
+(``protocol/fused.py``) never waits for the host; `pack_tree` / `unpack_tree`
 carry such a dict to the host as one vector. `sparse_openings` is the same
 for host query indices, fetched at once (the host-synced prover).
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from zkstark_tpu_torch.field import fp
+from zkstark_tpu_torch.ops import openings as open_op
 
 
 def map_leaves(tree: dict, fn) -> dict:
@@ -60,78 +64,84 @@ def unpack_tree(flat: np.ndarray, shapes: dict) -> dict:
     return out
 
 
-def sparse_openings(cfg, f_res, f_levels, layer_res, layer_levels, queries) -> dict:
-    """Every phase-4 opening (values and auth-path siblings) for the host
-    query indices `queries`, as host numpy, in one transfer:
-    `sparse_openings_device` on the uploaded indices, then one fetch. Layer 0
-    of layer_res / layer_levels is the composition tree."""
-    idx = fp.from_host(np.asarray(queries, dtype=np.uint32), f_res.device)
-    out = sparse_openings_device(cfg, f_res, f_levels, layer_res, layer_levels, idx)
-    return unpack_tree(fp.to_host(pack_tree(out)), map_leaves(out, lambda t: tuple(t.shape)))
+def opening_shapes(cfg, lead: tuple = ()) -> dict:
+    """The shape of every opening leaf behind the leading axes `lead`."""
+    q, shifts, rounds = cfg.n_queries, len(cfg.air.shifts), cfg.fri_rounds
+    depth = cfg.eval_domain.bit_length() - 1
+    return {
+        "open_f_vals": lead + (q, shifts),
+        "open_f_paths": lead + (q, shifts, depth, 8),
+        "open_cp_vals": lead + (q,),
+        "open_cp_paths": lead + (q, depth, 8),
+        "open_fri_vals": [lead + (q, 2) for _ in range(rounds)],
+        "open_fri_paths": [lead + (q, 2, depth - layer, 8) for layer in range(rounds)],
+    }
 
 
-class DenseGather:
-    """Reads of whole tensors: `vals` arr (…, n) uint32 at idx (…, r) int64
-    → (…, r) int32 bits; `rows` a level (…, k, 8) at idx (…, r) → (…, r, 8)."""
-
-    @staticmethod
-    def vals(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-        return torch.take_along_dim(fp.as_i32(arr), idx, dim=-1)
-
-    @staticmethod
-    def rows(level: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-        return torch.take_along_dim(fp.as_i32(level), idx[..., None].expand(idx.shape + (8,)),
-                                    dim=-2)
-
-
-def _auth_paths(levels: list, idx: torch.Tensor, gather=DenseGather) -> torch.Tensor:
-    """Sibling digests leaf→root of the device indices idx (…, r) in the
-    trees `levels` ((…, k, 8) each): (…, r, depth, 8) int32 bits. One gather
-    per level; the sibling index of every level comes from one shift."""
-    depth = len(levels) - 1
-    if depth == 0:
-        return torch.zeros(idx.shape + (0, 8), dtype=torch.int32, device=idx.device)
-    shifts = torch.arange(depth, dtype=torch.int64, device=idx.device)
-    sib = (idx[..., None] >> shifts) ^ 1  # (…, r, depth)
-    rows = [gather.rows(level, sib[..., d]) for d, level in enumerate(levels[:-1])]
-    return torch.stack(rows, dim=-2)
+@functools.lru_cache(maxsize=64)
+def segments(cfg) -> tuple:
+    """The opening leaves as `ops.openings.Segment`s in `pack_tree`'s order
+    (keys sorted, lists in order), over the trees of `_trees`: 0 the trace,
+    1 + k FRI layer k (layer 0 the composition). The index rules are the JAX
+    package's: x + shift·blowup for the trace, x itself for the composition,
+    x & (size − 1) and its partner + size/2 for a FRI layer of `size` points."""
+    seg = open_op.Segment
+    everything = open_op.ALL
+    f_adds = tuple(k * cfg.blowup for k in cfg.air.shifts)
+    layers = [(1 + k, cfg.eval_domain >> k) for k in range(cfg.fri_rounds)]
+    return (
+        seg(1, True, everything, (0,)),  # open_cp_paths
+        seg(1, False, everything, (0,)),  # open_cp_vals
+        seg(0, True, everything, f_adds),  # open_f_paths
+        seg(0, False, everything, f_adds),  # open_f_vals
+        *(seg(t, True, size - 1, (0, size // 2)) for t, size in layers),  # open_fri_paths
+        *(seg(t, False, size - 1, (0, size // 2)) for t, size in layers),  # open_fri_vals
+    )
 
 
-def sparse_openings_device(cfg, f_res, f_levels, layer_res, layer_levels, queries,
-                           gather=DenseGather) -> dict:
+def _trees(cfg, f_res, f_levels, layer_res, layer_levels) -> list:
+    """[values, level 0, …] of the trace tree and of each opened layer (the
+    root level is not read)."""
+    layers = max(cfg.fri_rounds, 1)
+    return [[f_res, *f_levels[:-1]]] + [
+        [res, *levels[:-1]] for res, levels in zip(layer_res[:layers], layer_levels[:layers])
+    ]
+
+
+def sparse_openings_packed(cfg, f_res, f_levels, layer_res, layer_levels, queries,
+                           shard: int | None = None, block: int = 0) -> torch.Tensor:
+    """Every phase-4 opening at the (…, q) uint32 device query indices as one
+    flat uint32 device vector in `pack_tree`'s layout of
+    `sparse_openings_device`'s dict: one kernel launch on a card. Layer 0 of
+    layer_res / layer_levels is the composition tree. On shard `shard` of a
+    mesh (B = 1), the arrays that are lists are sharded, and item `block` of
+    each list is this shard's block (`ops.openings.Block`; see there for the
+    owner rule)."""
+    trees = _trees(cfg, f_res, f_levels, layer_res, layer_levels)
+    if shard is not None:
+        trees = [[open_op.Block(a[block]) if isinstance(a, list) else a for a in t]
+                 for t in trees]
+    return open_op.openings(queries, trees, segments(cfg), shard)
+
+
+def sparse_openings_device(cfg, f_res, f_levels, layer_res, layer_levels, queries) -> dict:
     """`sparse_openings` with the query indices on the device: `queries` is a
     (…, q) uint32 tensor whose leading axes match those of the values (…, n)
-    and levels (…, k, 8). Returns uint32 device tensors with the JAX
-    package's shapes behind the leading axes: open_f_vals (…, q, n_shifts),
-    open_f_paths (…, q, n_shifts, depth, 8), open_cp_vals (…, q),
+    and levels (…, k, 8). Returns views of `sparse_openings_packed`'s vector
+    with the JAX package's shapes behind the leading axes: open_f_vals (…, q,
+    n_shifts), open_f_paths (…, q, n_shifts, depth, 8), open_cp_vals (…, q),
     open_cp_paths (…, q, depth, 8) and per FRI layer open_fri_vals (…, q, 2),
     open_fri_paths (…, q, 2, depth, 8). Makes no call that waits for the
     device."""
-    x = fp.wide(queries)  # (…, q) int64
-    lead, q = x.shape[:-1], x.shape[-1]
-    shifts = cfg.air.shifts
-    f_idx = torch.stack([x + k * cfg.blowup for k in shifts], dim=-1)
-    f_idx = f_idx.reshape(lead + (q * len(shifts),))
-    f_depth = len(f_levels) - 1
-    out = {
-        "open_f_vals": gather.vals(f_res, f_idx).reshape(lead + (q, len(shifts))),
-        "open_f_paths": _auth_paths(f_levels, f_idx, gather).reshape(lead + (q, len(shifts), f_depth, 8)),
-        "open_cp_vals": gather.vals(layer_res[0], x),
-        "open_cp_paths": _auth_paths(layer_levels[0], x, gather),
-        "open_fri_vals": [],
-        "open_fri_paths": [],
-    }
-    for layer in range(cfg.fri_rounds):
-        size = cfg.eval_domain >> layer
-        xi = x & (size - 1)
-        idx = torch.stack([xi, (xi + size // 2) & (size - 1)], dim=-1).reshape(lead + (2 * q,))
-        out["open_fri_vals"].append(gather.vals(layer_res[layer], idx).reshape(lead + (q, 2)))
-        out["open_fri_paths"].append(
-            _auth_paths(layer_levels[layer], idx, gather).reshape(
-                lead + (q, 2, len(layer_levels[layer]) - 1, 8)
-            )
-        )
-    return {
-        k: [fp.as_u32(t) for t in v] if isinstance(v, list) else fp.as_u32(v)
-        for k, v in out.items()
-    }
+    flat = sparse_openings_packed(cfg, f_res, f_levels, layer_res, layer_levels, queries)
+    return unpack_tree(flat, opening_shapes(cfg, tuple(queries.shape[:-1])))
+
+
+def sparse_openings(cfg, f_res, f_levels, layer_res, layer_levels, queries) -> dict:
+    """Every phase-4 opening (values and auth-path siblings) for the host
+    query indices `queries`, as host numpy, in one transfer:
+    `sparse_openings_packed` on the uploaded indices, then one fetch. Layer 0
+    of layer_res / layer_levels is the composition tree."""
+    idx = fp.from_host(np.asarray(queries, dtype=np.uint32), f_res.device)
+    flat = sparse_openings_packed(cfg, f_res, f_levels, layer_res, layer_levels, idx)
+    return unpack_tree(fp.to_host(flat), opening_shapes(cfg))

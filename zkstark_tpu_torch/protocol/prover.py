@@ -39,22 +39,17 @@ from zkstark_tpu_torch import ntt
 from zkstark_tpu_torch.field import fp
 from zkstark_tpu_torch.hash import merkle
 from zkstark_tpu_torch.hash.sha256 import digest_to_bytes
-from zkstark_tpu_torch.ops import composition, fri_fold
+from zkstark_tpu_torch.ops import composition, constants, elementwise, fri_fold
 from zkstark_tpu_torch.protocol import air
 from zkstark_tpu_torch.protocol.config import StarkConfig
 from zkstark_tpu_torch.protocol.openings import sparse_openings
 from zkstark_tpu_torch.protocol.proof import Proof
 from zkstark_tpu_torch.transcript import Channel, bincode
 
-# Domains up to this size get their protocol constants from exact host numpy;
-# bigger ones are computed on the device (prover.py:50 of the JAX package).
+# On the CPU, domains up to this size get their protocol constants from exact
+# host numpy, bigger ones from plain torch (prover.py:50 of the JAX package);
+# on a card the kernel of ``ops/constants.py`` builds them at every size.
 _HOST_CONST_MAX = 1 << 20
-
-
-# points of the domain whose constants are computed at once above
-# `_HOST_CONST_MAX`: the Fermat inversion's int64 temporaries stay at a few
-# hundred MB whatever the domain
-_CONST_CHUNK = 1 << 22
 
 
 # Bytes of inverse denominators that stay cached (`composition_constants`):
@@ -105,26 +100,41 @@ def composition_constants(cfg: StarkConfig, device) -> torch.Tensor:
     invertible on it and the pointwise quotients equal the reference's exact
     polynomial divisions (prover.rs:101-151).
 
+    On a card, one launch of the kernel behind ``ops/constants.py`` writes
+    the whole tensor at every size. On the CPU, exact host numpy up to 2^20
+    points, and above the kernel's plain-torch twin; both are also what the
+    kernel is held against.
+
     Kept per (config, device), 4 bytes per constraint and point (1 GB at 2^27
-    points and two constraints, 2 GB at 2^28): above 2^20 points building them
-    is a Fermat inversion of the whole domain on the device (about 0.6 s at
-    2^24 points on an NVIDIA H100, ten times the rest of a proof's device
-    work), and below, uploading them would make every prove wait for the
-    device. The cache is bounded by bytes (`_ByteBoundedCache`,
-    `_CONST_CACHE_BYTES`), so a process that walks up through big statements
-    holds one big entry at a time; ``composition_constants.cache_clear()``
-    frees them all. The domain xs itself is not kept: the composition kernel
-    takes x_j from two small tables (`coset_domain` builds the vector for the
-    plain version)."""
-    if cfg.eval_domain <= _HOST_CONST_MAX:
+    points and two constraints, 2 GB at 2^28), so that warm proves neither
+    rebuild nor upload them. The cache is bounded by bytes
+    (`_ByteBoundedCache`, `_CONST_CACHE_BYTES`), so a process that walks up
+    through big statements holds one big entry at a time;
+    ``composition_constants.cache_clear()`` frees them all. The domain xs
+    itself is not kept: the composition kernel takes x_j from two small
+    tables (`coset_domain` builds the vector for the plain version)."""
+    if torch.device(device).type == "cpu" and cfg.eval_domain <= _HOST_CONST_MAX:
         return fp.from_host(np.stack(_composition_constants_host(cfg)["inv_dens"]), device)
-    return _composition_constants_device(cfg, device)
+    return constants.inverse_denominators(constants_system(cfg), cfg.field, device)
+
+
+@functools.lru_cache(maxsize=None)
+def constants_system(cfg: StarkConfig) -> constants.System:
+    """The config's denominators encoded for ``ops/constants.py``."""
+    p, g = cfg.field.p, cfg.trace_generator
+    cons = [
+        ("boundary", pow(g, con.step, p)) if isinstance(con, air.Boundary)
+        else ("transition", tuple(pow(g, e, p) for e in con.exempt))
+        for con in cfg.constraints
+    ]
+    return constants.encode(cons, cfg.trace_domain, cfg.blowup, cfg.domain_generator,
+                            cfg.coset_offset, cfg.field)
 
 
 @functools.lru_cache(maxsize=None)
 def _composition_constants_host(cfg: StarkConfig) -> dict:
-    """Exact numpy twin of `_composition_constants_device` (u64 modular
-    arithmetic), and the domain xs."""
+    """Exact numpy twin of ``ops/constants.py`` `inverse_denominators` (u64
+    modular arithmetic), and the domain xs."""
     n, d, o = cfg.trace_domain, cfg.eval_domain, cfg.coset_offset
     fld = cfg.field
     g = cfg.trace_generator
@@ -157,32 +167,6 @@ def _domain_chunk(cfg: StarkConfig, start: int, size: int, device) -> torch.Tens
     fld = cfg.field
     scale = cfg.coset_offset * pow(cfg.domain_generator, start, fld.p) % fld.p
     return fp.powers_iota_f(fld, cfg.domain_generator, size, scale=scale, device=device)
-
-
-def _composition_constants_device(cfg: StarkConfig, device) -> torch.Tensor:
-    """The inverse denominators computed on `device`, `_CONST_CHUNK` points
-    at a time into the one tensor that is kept."""
-    n, d = cfg.trace_domain, cfg.eval_domain
-    fld = cfg.field
-    g = cfg.trace_generator
-    out = torch.empty((cfg.n_constraints, d), dtype=torch.int32, device=device)
-    size = min(d, _CONST_CHUNK)
-    for start in range(0, d, size):
-        xs = _domain_chunk(cfg, start, size, device)
-        for c, con in enumerate(cfg.constraints):
-            if isinstance(con, air.Boundary):
-                point = fld.mont_scalar(pow(g, con.step, fld.p))
-                inv = fp.inv_f(fld, fp.sub_f(fld, xs, point))
-            else:
-                num = fp.sub_f(fld, fp.pow_static_f(fld, xs, n), fld.r_mod_p)
-                den = None
-                for e in con.exempt:
-                    term = fp.sub_f(fld, xs, fld.mont_scalar(pow(g, e, fld.p)))
-                    den = term if den is None else fp.mont_mul_f(fld, den, term)
-                inv = fp.inv_f(fld, num)
-                inv = inv if den is None else fp.mont_mul_f(fld, den, inv)
-            out[c, start : start + size] = fp.as_i32(inv)
-    return fp.as_u32(out)
 
 
 def coset_domain(cfg: StarkConfig, device) -> torch.Tensor:
@@ -364,7 +348,7 @@ def phase1(cfg: StarkConfig, channel: Channel, trace_mont: torch.Tensor):
     fld = cfg.field
     coeffs = air.interpolate_trace(trace_mont, cfg.trace_domain, fld)
     f_eval = ntt.coset_ntt(coeffs, cfg.eval_domain, cfg.coset_offset, fld)
-    f_res = fp.from_mont_f(fld, f_eval)
+    f_res = elementwise.from_mont(f_eval, fld)
     f_levels = merkle.build_levels(f_res)
     channel.commit_hash(_root_bytes(f_levels))
     return f_eval, f_res, f_levels
