@@ -15,10 +15,20 @@ Phases, one output line (or a few) each:
      (its bound); the tolerance is 0 (the field has no rounding, so every
      output word must be equal). `ntt_rows` also at each fused option
      (pre-scale on a short valid prefix, the U·V twiddle, 1/n, post-scale)
-     and `transpose` on a missing tail; then `coset_ntt` at 2^13, 2^24 and
-     2^25 and `intt` at 2^10 and 2^22 on the card, timed, the 2^25 call
-     under torch.profiler, where every device kernel in the window must be
-     one of the port's own (or a memset or memcpy). `limb_dft_rows` against
+     and `transpose` on a missing tail; `ntt_rows_pease` in the TPU
+     kernel's bit-reversed order, then with every option of the `ntt_rows`
+     contract in both orders beside `ntt_rows`; the two designs of the Pease
+     route's bit reversal (natural rows and plain transposes, or bit-reversed
+     rows and the transposes' bit-reversed rows), the transposes alone and
+     the whole 2^24 and 2^25 LDE of each, in turns; ``period=`` on the three
+     row kernels and the batched `transpose` at the passes of 16 LDEs of
+     2^20 points; then `coset_ntt` at 2^13, 2^24 and 2^25 and `intt` at 2^10
+     and 2^22 on the card, timed, the 2^25 call under torch.profiler, where
+     every device kernel in the window must be one of the port's own (or a
+     memset or memcpy); `coset_ntt` at 2^24, 2^25 and a batch of 16 at 2^20
+     on both routes (DIT and ZKSTARK_PEASE=on) in turns, each 2 row launches
+     and 3 transposes, equal across routes, the 2^25 and batched ones under
+     the profiler like the 2^25 call. `limb_dft_rows` against
      its plain version and against `ntt_rows` at the 2^27 LDE's two passes and
      at 4096 x 4096, each fused option once, both primes; `composition`
      against `composition_eval_plain` for the three AIRs at 2^13 and for
@@ -40,8 +50,10 @@ Phases, one output line (or a few) each:
      subprocess on the Pease route (ZKSTARK_PEASE=on), ``... verify`` and
      the C++ verifier on its file, then ``tools.prove_big --trace-bits 22``
      in this process on the default DIT route: 24,252 proof bytes, the same
-     bytes from both routes; this is the main-path run whose kernel
-     launches are counted (Pease from the CLI, the others from prove_big);
+     bytes from both routes; the CLI's Pease route launches
+     `ntt_rows_pease` 4 and `transpose` 6 times (two four-steps) and
+     `ntt_rows` none; this is the main-path run whose kernel launches are
+     counted (Pease from the CLI, the others from prove_big);
   8. a 2^16 checkpoint written on the card at the post-device barrier (and
      one at phase2) resumes on the CPU to phase 5's proof;
   9. the one-fetch path alone: stark-101 through ``prove(fused=True)`` equals
@@ -55,8 +67,12 @@ Phases, one output line (or a few) each:
      the interpolation, `from_mont` and the openings (also phase 11, at 2^24);
  10. batched: ``prove_batch`` of B = 32 and B = 64 stark-101 witnesses, every
      proof the golden one, proofs per second; ``prove_batch_pipelined`` over
-     4 batches of 32; B = 4 at the 2^16 statement equals phase 5's bytes (the
-     four-step route under a batch);
+     4 batches of 32; square-chain batches on the four-step route, B = 4 at
+     2^16 and B = 16 at 2^20, the secrets s and p - s alternating (distinct
+     witnesses, one public output), each proof equal to its solo proof,
+     3 + 3 and 4 + 6 `ntt_rows` + `transpose` launches (one four-step a
+     transform for the whole batch), peak memory and wall time; a batch of
+     16 LDEs at 2^20 within 16 times one LDE's working set;
  11. pipelined: ``prove_pipelined`` of 8 stark-101 proofs, and of 3 proofs of
      the 2^24 statement at depth 2, each equal to phase 6's proof, with the
      per-proof time beside the solo warm times and the peak memory; this is
@@ -432,17 +448,16 @@ def phase3_kernels() -> dict:
         if (batch, m) == (4096, 4096):
             rows["ntt_rows"] = r
         del x
-    for batch, m in pease_shapes:
+    for batch, m in pease_shapes:  # the TPU kernel's function: bit-reversed out, no option
         x = rand_mont((batch, m))
         w = ntt_core.forward_plan(m).root
-        tw = ntt_kernel.pease_twiddles(m, w, fld)
-        limit = ntt_rows_bound(batch, m, m)
-        r = _compare("ntt_rows_pease", f"batch={batch} m={m}",
-                     lambda: ntt_kernel.ntt_rows_pease(x, w),
-                     lambda: ntt_kernel.ntt_rows_pease_plain(x, tw), limit)
-        if (batch, m) == (4096, 4096):
-            rows["ntt_rows_pease"] = r
+        _compare("ntt_rows_pease", f"bitrev batch={batch} m={m}",
+                 lambda: ntt_kernel.ntt_rows_pease(x, w, bitrev=True),
+                 lambda: ntt_kernel.ntt_rows_pease_plain(x, w, bitrev=True),
+                 ntt_rows_bound(batch, m, m))
         del x
+    rows["ntt_rows_pease"] = phase3_pease_contract(rand_mont)
+    phase3_period(rand_mont)
 
     # ntt_rows at each fused option, at the calls the prove path makes: pass 1
     # of the 2^25 and 2^24 LDEs (a short valid prefix, the coset pre-scale on
@@ -510,6 +525,7 @@ def phase3_kernels() -> dict:
         if (r_, c_) == (4096, 4096):
             rows["transpose"] = r
         del x
+    phase3_batched_transpose(rand_mont)
     say("phase3 clocks", sm_clocks())
     rows.update(phase3_chain_and_fold())
     rows.update(phase3_serial_kernels(rows["fs_chain"]))
@@ -518,6 +534,175 @@ def phase3_kernels() -> dict:
     phase3_shard_contracts()
     phase3_lde()
     return rows
+
+
+def phase3_pease_contract(rand_mont) -> dict:
+    """`ntt_rows_pease` with the `ntt_rows` contract, in both orders, beside
+    `ntt_rows` on the same call: every fused option at 4096 x 4096 (the
+    kernel's table row, bit-reversed order, the four-step's), then the passes
+    of the 2^24 LDE; then the two designs of the bit reversal, each a pass 1
+    of the 2^24 LDE and the transpose after it: (a) natural order out of the
+    kernel (a swizzled shared-memory round trip) and a plain transpose, (b)
+    bit-reversed out and the transpose's bit-reversed rows."""
+    from zkstark_tpu_torch.field import fp
+    from zkstark_tpu_torch.ntt import core as ntt_core
+    from zkstark_tpu_torch.ops import ntt_kernel
+
+    fld, geo = fp.FIELD101, ntt_kernel.GeoScale
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n = 1 << 24
+    w = ntt_core.forward_plan(n).root
+    out = None
+    for label, batch, valid, m, opts in (
+        ("all options", 4096, 4096, 4096, ("pre", "uv", "post", "scale")),
+        ("2^24 pass 1 pre+uv", 4096, 512, 4096, ("pre", "uv")),
+        ("2^24 pass 2 post", 4096, 4096, 4096, ("post",)),
+    ):
+        x = rand_mont((batch, valid))
+        wm = pow(w, n // m, fld.p)
+        for bitrev in (True, False):
+            n1, n2, ut, vt = ntt_kernel._device_uv(n, w, None, fld, dev, bitrev)
+            kw = dict(m=m)
+            if "pre" in opts:
+                kw["pre"] = geo(5, n, col_stride=n2, row_stride=1)
+            if "uv" in opts:
+                kw["uv"] = (ut, vt)
+            if "post" in opts:
+                kw["post"] = geo(pow(5, fld.p - 2, fld.p), n, col_stride=n1, row_stride=1)
+            if "scale" in opts:
+                kw["scale"] = fld.mont_scalar(3)
+            order = "bitrev" if bitrev else "natural"
+            r = _compare("ntt_rows_pease", f"{order} {label} batch={batch} valid={valid} m={m}",
+                         lambda: ntt_kernel.ntt_rows_pease(x, wm, fld, bitrev=bitrev, **kw),
+                         lambda: ntt_kernel.ntt_rows_pease_plain(x, wm, fld, bitrev=bitrev, **kw),
+                         ntt_rows_bound(batch, valid, m, **{o: True for o in opts}))
+            if bitrev and label == "all options":
+                out = r
+        # kw: the natural order's, whose tables are ntt_rows' too
+        dit_ms = cuda_ms(lambda: ntt_kernel.ntt_rows(x, wm, fld, **kw), 20)
+        if max_abs_err(ntt_kernel.ntt_rows(x, wm, fld, **kw),
+                       ntt_kernel.ntt_rows_pease(x, wm, fld, **kw)):
+            raise AssertionError(f"ntt_rows_pease {label} differs from ntt_rows")
+        say(f"phase3 ntt_rows_pease {label} ==ntt_rows ntt_rows_ms={dit_ms:.4f}")
+        del x
+    phase3_bitrev_designs(rand_mont)
+    return out
+
+
+def _pease_lde(coeffs, n: int, bitrev: bool):
+    """`coset_ntt(coeffs, n, 5)` on the Pease kernel by one of the two
+    designs of the bit reversal: (a) natural-order rows and plain transposes,
+    (b) bit-reversed rows and the transposes' bit-reversed rows."""
+    from zkstark_tpu_torch.field import fp
+    from zkstark_tpu_torch.ntt import core as ntt_core
+    from zkstark_tpu_torch.ops import ntt_kernel
+
+    fld = fp.FIELD101
+    w = ntt_core.forward_plan(n).root
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n1, n2, ut, vt = ntt_kernel._device_uv(n, w, None, fld, dev, bitrev)
+    pre = ntt_kernel.GeoScale(5, n, col_stride=n2, row_stride=1)
+    at = ntt_kernel.transpose(coeffs, -(-coeffs.shape[0] // n2), n2)
+    at = ntt_kernel.ntt_rows_pease(at, pow(w, n2, fld.p), fld, m=n1, pre=pre, uv=(ut, vt),
+                                   bitrev=bitrev)
+    b = ntt_kernel.transpose(at.reshape(-1), n2, n1, brev=bitrev)
+    d = ntt_kernel.ntt_rows_pease(b, pow(w, n1, fld.p), fld, bitrev=bitrev)
+    return ntt_kernel.transpose(d.reshape(-1), n1, n2, brev=bitrev).reshape(-1)
+
+
+def phase3_bitrev_designs(rand_mont) -> None:
+    """The two designs of the Pease route's bit reversal, timed in turns
+    (a, b, b, a; the least of each, 50 calls a window): the transposes alone
+    (plain and with bit-reversed rows) at the four-step's shapes, and the
+    whole 2^24 and 2^25 LDE of each design, composed from the kernels; each
+    LDE equal to `coset_ntt`."""
+    from zkstark_tpu_torch.ntt import core as ntt_core
+    from zkstark_tpu_torch.ops import ntt_kernel
+
+    def turns(fns, iters):
+        times = {k: [] for k in fns}
+        for k in (*fns, *reversed(fns)):
+            times[k].append(cuda_ms(fns[k], iters))
+        return {k: min(v) for k, v in times.items()}
+
+    for r_, c_ in ((4096, 4096), (4096, 8192), (8192, 4096)):
+        x = rand_mont(r_ * c_)
+        t = turns({brev: (lambda brev=brev: ntt_kernel.transpose(x, r_, c_, brev=brev))
+                   for brev in (False, True)}, 50)
+        say(f"phase3 transpose rows={r_} cols={c_} plain ms={t[False]:.4f} "
+            f"brev ms={t[True]:.4f} brev/plain={t[True] / t[False]:.3f}")
+        del x
+    for log_n in (24, 25):
+        n = 1 << log_n
+        coeffs = rand_mont(n // 8)
+        want = ntt_core.coset_ntt(coeffs, n, 5)
+        fns = {bitrev: (lambda bitrev=bitrev: _pease_lde(coeffs, n, bitrev))
+               for bitrev in (False, True)}
+        for bitrev, fn in fns.items():
+            if max_abs_err(fn(), want):
+                raise AssertionError(f"the Pease LDE by design {'b' if bitrev else 'a'} differs")
+        t = turns(fns, 50)
+        say(f"phase3 pease bit reversal coset_ntt n=2^{log_n}: (a) natural rows + plain "
+            f"transposes ms={t[False]:.4f} (b) bitrev rows + brev transposes ms={t[True]:.4f} "
+            f"b/a={t[True] / t[False]:.3f}")
+        del coeffs, want
+
+
+def phase3_period(rand_mont) -> None:
+    """``period=`` on the three row kernels at the passes of the phase-10
+    batch, 16 transforms of 2^20 points in one launch each (n1 = n2 = 1024):
+    pass 1 with the coefficient prefix, the pre-scale and the twiddle, pass 2
+    with the post-scale, against the plain twins."""
+    from zkstark_tpu_torch.field import fp
+    from zkstark_tpu_torch.ntt import core as ntt_core
+    from zkstark_tpu_torch.ops import limb_dft, ntt_kernel
+
+    fld, geo = fp.FIELD101, ntt_kernel.GeoScale
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n, bsz = 1 << 20, 16
+    w = ntt_core.forward_plan(n).root
+    n1, n2 = ntt_kernel.split(n)
+    kernels = (("ntt_rows", ntt_kernel.ntt_rows, ntt_kernel.ntt_rows_plain, {}, ntt_rows_bound),
+               ("ntt_rows_pease", ntt_kernel.ntt_rows_pease, ntt_kernel.ntt_rows_pease_plain,
+                {"bitrev": True}, ntt_rows_bound),
+               ("limb_dft_rows", limb_dft.limb_dft_rows, limb_dft.limb_dft_rows_plain, {},
+                limb_rows_bound))
+    for name, fn, plain, extra, limit in kernels:
+        _, _, ut, vt = ntt_kernel._device_uv(n, w, None, fld, dev, bool(extra))
+        x = rand_mont((bsz * n2, n1 // 8))
+        kw = dict(m=n1, pre=geo(5, n, col_stride=n2, row_stride=1), uv=(ut, vt), period=n2, **extra)
+        w1 = pow(w, n2, fld.p)
+        _compare(name, f"period={n2} pass 1 of {bsz} x 2^20 batch={bsz * n2} valid={n1 // 8} m={n1}",
+                 lambda: fn(x, w1, fld, **kw), lambda: plain(x, w1, fld, **kw),
+                 limit(bsz * n2, n1 // 8, n1, pre=True, uv=True), iters=10)
+        x = rand_mont((bsz * n1, n2))
+        kw = dict(post=geo(pow(5, fld.p - 2, fld.p), n, col_stride=n1, row_stride=1), period=n1,
+                  **extra)
+        w2 = pow(w, n1, fld.p)
+        _compare(name, f"period={n1} pass 2 of {bsz} x 2^20 batch={bsz * n1} m={n2}",
+                 lambda: fn(x, w2, fld, **kw), lambda: plain(x, w2, fld, **kw),
+                 limit(bsz * n1, n2, n2, post=True), iters=10)
+        del x
+
+
+def phase3_batched_transpose(rand_mont) -> None:
+    """`transpose` of a batch in one launch: the phase-10 batch's first
+    transpose (16 coefficient vectors of 2^17 words as (128, 1024)) and its
+    bit-reversed ones on the Pease route (16 of (1024, 1024)), beside one
+    PyTorch call on the same words."""
+    from zkstark_tpu_torch.field import fp
+    from zkstark_tpu_torch.ops import ntt_kernel
+
+    for bsz, r_, c_, words, brev in ((16, 128, 1024, 1 << 17, False), (16, 1024, 1024, 1 << 20, True),
+                                     (16, 1024, 1024, 1 << 20, False)):
+        x = rand_mont((bsz, words))
+        _compare("transpose", f"batch={bsz} rows={r_} cols={c_} words={words} brev={int(brev)}",
+                 lambda: ntt_kernel.transpose(x, r_, c_, brev=brev),
+                 lambda: ntt_kernel.transpose_plain(x, r_, c_, brev=brev),
+                 bound(4 * bsz * (words + r_ * c_), 0),
+                 library=None if brev else (
+                     lambda: fp.as_i32(x).reshape(bsz, r_, c_).transpose(1, 2).contiguous()))
+        del x
 
 
 def _all_equal(name: str, label: str, got, want) -> None:
@@ -1091,14 +1276,38 @@ OWN_KERNELS = ("ntt_rows_kernel", "transpose_kernel", "transpose_blocks_kernel",
                "constants_kernel")
 
 
-def phase3_lde() -> None:
-    """The LDE entry points on the card, timed; the 2^25 and 2^27 `coset_ntt`
-    under torch.profiler launch none but the port's own kernels."""
+def _own_kernels_only(fn, what: str, own: str) -> dict:
+    """One call of `fn` under torch.profiler: every device kernel in the
+    window must be one of the port's own (or a memset or memcpy), `own`
+    among them; returns the kernels by name."""
     from collections import Counter
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = Counter(e.name for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not names:
+        raise AssertionError("torch.profiler recorded no device activity")
+    foreign = [k for k in names
+               if not any(k_own in k for k_own in OWN_KERNELS)
+               and not k.lower().startswith(("memset", "memcpy"))]
+    say(f"phase3 {what} device kernels={json.dumps(dict(names))}")
+    if foreign:
+        raise AssertionError(f"{what} launched foreign kernels: {foreign}")
+    if not any(own in k for k in names):
+        raise AssertionError(f"{what} did not launch {own}")
+    return names
+
+
+def phase3_lde() -> None:
+    """The LDE entry points on the card, timed; the 2^25 and 2^27 `coset_ntt`,
+    the 2^25 one on the Pease route, and a batch of 16 at 2^20 on both
+    routes, under torch.profiler, launch none but the port's own kernels; a
+    four-step is 5 launches on every route, whatever the batch."""
+    from zkstark_tpu_torch import ops
     from zkstark_tpu_torch.field import fp
     from zkstark_tpu_torch.ntt import core as ntt_core
 
@@ -1114,21 +1323,8 @@ def phase3_lde() -> None:
         ms = cuda_ms(lambda: ntt_core.coset_ntt(coeffs, n, 5), 5 if log_n >= 25 else 20)
         say(f"phase3 coset_ntt n=2^{log_n} coeffs=2^{log_n - 3} ms={ms:.4f}")
         if log_n >= 25:
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                ntt_core.coset_ntt(coeffs, n, 5)
-                torch.cuda.synchronize()
-            names = Counter(e.name for e in prof.events() if e.device_type == DeviceType.CUDA)
-            if not names:
-                raise AssertionError("torch.profiler recorded no device activity")
-            foreign = [k for k in names
-                       if not any(own in k for own in OWN_KERNELS)
-                       and not k.lower().startswith(("memset", "memcpy"))]
-            say(f"phase3 coset_ntt n=2^{log_n} device kernels={json.dumps(dict(names))}")
-            if foreign:
-                raise AssertionError(f"coset_ntt at 2^{log_n} launched foreign kernels: {foreign}")
             own = "limb_dft_rows_kernel" if log_n > 26 else "ntt_rows_kernel"
-            if not any(own in k for k in names):
-                raise AssertionError(f"coset_ntt at 2^{log_n} did not launch {own}")
+            _own_kernels_only(lambda: ntt_core.coset_ntt(coeffs, n, 5), f"coset_ntt n=2^{log_n}", own)
         del coeffs
         torch.cuda.empty_cache()
     for log_n in (10, 22):
@@ -1138,6 +1334,40 @@ def phase3_lde() -> None:
         ms = cuda_ms(lambda: ntt_core.intt(evals, plan), 20)
         say(f"phase3 intt n=2^{log_n} ms={ms:.4f}")
         del evals
+    # the same LDE on both routes, and a batch of 16 at 2^20 on both, in turns
+    checks = (("off", 1, 24), ("on", 1, 24), ("on", 1, 24), ("off", 1, 24),
+              ("off", 1, 25), ("on", 1, 25), ("on", 1, 25), ("off", 1, 25),
+              ("off", 16, 20), ("on", 16, 20), ("on", 16, 20), ("off", 16, 20))
+    inputs = {(bsz, log_n): rand_mont((bsz, (1 << log_n) // 8)).squeeze(0)
+              for _, bsz, log_n in checks}
+    outs, profiled = {}, set()
+    for route, bsz, log_n in checks:
+        os.environ["ZKSTARK_PEASE"] = route
+        n = 1 << log_n
+        coeffs = inputs[bsz, log_n]
+        ops.reset_launch_counts()
+        got = ntt_core.coset_ntt(coeffs, n, 5)
+        counts = ops.launch_counts()
+        rows = "ntt_rows_pease" if route == "on" else "ntt_rows"
+        other = "ntt_rows" if route == "on" else "ntt_rows_pease"
+        if (counts[rows], counts["transpose"], counts[other]) != (2, 3, 0):
+            raise AssertionError(f"coset_ntt 2^{log_n} B={bsz} ZKSTARK_PEASE={route}: "
+                                 f"not 2 + 3 launches: {counts}")
+        want = outs.setdefault((bsz, log_n), got)
+        if max_abs_err(got, want):
+            raise AssertionError(f"coset_ntt 2^{log_n} B={bsz}: the two routes differ")
+        ms = cuda_ms(lambda: ntt_core.coset_ntt(coeffs, n, 5), 50)
+        say(f"phase3 coset_ntt n=2^{log_n} B={bsz} ZKSTARK_PEASE={route} ms={ms:.4f} "
+            f"launches {rows}={counts[rows]} transpose={counts['transpose']}")
+        if (log_n == 25 or bsz > 1) and (bsz, log_n, route) not in profiled:
+            profiled.add((bsz, log_n, route))
+            _own_kernels_only(lambda: ntt_core.coset_ntt(coeffs, n, 5),
+                              f"coset_ntt n=2^{log_n} B={bsz} ZKSTARK_PEASE={route}",
+                              "ntt_rows_pease_kernel" if route == "on" else "ntt_rows_kernel")
+        del got, want
+    os.environ.pop("ZKSTARK_PEASE")
+    del inputs, outs
+    torch.cuda.empty_cache()
 
 
 def phase4_stark101():
@@ -1281,6 +1511,12 @@ def phase7_entry_points(tmp_dir: str) -> dict:
     require_launched(pease_counts, ("sha256_leaf", "sha256_node", "sha256_tree_tail",
                                     "ntt_rows_pease", *FUSED_KERNELS),
                      "CLI 2^25")
+    # the Pease route's two four-steps (the 2^22 INTT, the 2^25 LDE): 2 row
+    # launches and 3 transposes each, and nothing else of the NTT
+    route = tuple(pease_counts[k] for k in ("ntt_rows_pease", "transpose", "ntt_rows"))
+    if route != (4, 6, 0):
+        raise AssertionError(f"CLI 2^25 on the Pease route: (ntt_rows_pease, transpose, "
+                             f"ntt_rows) launches {route}, want (4, 6, 0)")
     boundary = str(cli["boundary_last"])
     checked = _cli(statement + ["--boundary-last", boundary, "verify", out], env)
     if not checked.get("verified"):
@@ -1522,8 +1758,12 @@ def phase9_fused_solo() -> dict:
 
 
 def phase10_batch(cfg16, proof16):
-    from zkstark_tpu_torch import STARK101, STARK101_SECRET, ops, prove
+    from zkstark_tpu_torch import STARK101, STARK101_SECRET, ntt, ops, prove, verify
+    from zkstark_tpu_torch.field import fp
+    from zkstark_tpu_torch.native import verify_native
     from zkstark_tpu_torch.protocol.batch import prove_batch, prove_batch_pipelined
+
+    fld = fp.FIELD101
 
     golden = prove(STARK101, STARK101_SECRET, device="cuda")
     for bsz in (32, 64):
@@ -1550,16 +1790,61 @@ def phase10_batch(cfg16, proof16):
                      proofs, 3, "prove_batch_pipelined")
     say(f"phase10 prove_batch_pipelined stark101 4x32 depth=2 all golden stream_s_min={best:.4f} "
         f"proofs_per_s={128 / best:.1f}")
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    four = prove_batch(cfg16, [BIG_SECRET] * 4, device="cuda")
-    took = time.perf_counter() - t0
-    counts = ops.launch_counts()
-    if any(p != proof16 for p in four):
-        raise AssertionError("prove_batch B=4 at 2^16 differs from phase 5")
-    require_launched(counts, (*DIT_KERNELS, *FUSED_KERNELS), "prove_batch 2^16")
-    say(f"phase10 prove_batch square-chain 2^16 B=4 ==phase5 batch_s={took:.4f} "
-        f"launches={json.dumps(counts)}")
+    # square-chain batches on the four-step route: B = 4 at 2^16 and B = 16 at
+    # 2^20 (trace bits 17: a 2^17 INTT and a 2^20 LDE). The secrets s and p - s
+    # alternate: their witnesses differ in row 0 and share the public output,
+    # so a batch stride that gave one proof another's rows would show.
+    p = fld.p
+    for trace_bits, bsz, want_counts in ((13, 4, (3, 3)), (17, 16, (4, 6))):
+        cfg = cfg16 if trace_bits == 13 else _square_chain_cfg(trace_bits, BIG_SECRET)
+        secrets = [BIG_SECRET if i % 2 == 0 else p - BIG_SECRET for i in range(bsz)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        solo = {s: prove(cfg, s, device="cuda") for s in (BIG_SECRET, p - BIG_SECRET)}
+        solo_peak = torch.cuda.max_memory_allocated()
+        if trace_bits == 13 and solo[BIG_SECRET] != proof16:
+            raise AssertionError("the solo 2^16 proof differs from phase 5")
+        if solo[BIG_SECRET] == solo[p - BIG_SECRET]:
+            raise AssertionError(f"2^{trace_bits + 3}: the secrets s and p - s gave one proof")
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = prove_batch(cfg, secrets, device="cuda")
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        what = f"prove_batch square-chain 2^{trace_bits + 3} B={bsz}"
+        if [g == solo[s] for g, s in zip(got, secrets)] != [True] * bsz:
+            raise AssertionError(f"{what}: a proof differs from its solo proof")
+        verify(got[1], cfg)
+        verify_native(got[1], cfg)
+        require_launched(counts, (*DIT_KERNELS, *FUSED_KERNELS), what)
+        # each four-step is 2 row launches and 3 transposes for the whole batch
+        if (counts["ntt_rows"], counts["transpose"]) != want_counts:
+            raise AssertionError(f"{what}: (ntt_rows, transpose) launches "
+                                 f"{(counts['ntt_rows'], counts['transpose'])}, want {want_counts}")
+        best = _warm_min(lambda: prove_batch(cfg, secrets, device="cuda"), got, 2, what)
+        say(f"phase10 {what} s,p-s alternating each==solo verify=ok native=ok cold_s={took:.4f} "
+            f"warm_s_min={best:.4f} proofs_per_s={bsz / best:.2f} max_memory_allocated={peak} "
+            f"solo_max_memory_allocated={solo_peak} launches={json.dumps(counts)}")
+    # the batch's LDE alone: its working set against B times the solo one
+    n, bsz = 1 << 20, 16
+    coeffs = fp.from_host(fld.host_to_mont(np.random.default_rng(10).integers(
+        0, p, (bsz, n // 8), dtype=np.uint64)), "cuda")
+    sets = {}
+    for b in (1, bsz):
+        one = coeffs[:b].contiguous()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ntt.coset_ntt(one, n, 5)
+        torch.cuda.synchronize()
+        sets[b] = torch.cuda.max_memory_allocated() - base
+    say(f"phase10 coset_ntt 2^20 working set B=1 {sets[1]} B={bsz} {sets[bsz]} "
+        f"ratio={sets[bsz] / sets[1]:.3f}")
+    if sets[bsz] > bsz * sets[1]:
+        raise AssertionError(f"a batch of {bsz} LDEs takes more than {bsz} times one: {sets}")
 
 
 def phase11_pipelined(cfg24, proof24, host_synced_warm_s: float) -> dict:

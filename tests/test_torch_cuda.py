@@ -6,9 +6,11 @@ no JAX, so it also runs on a machine with a card and no JAX:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Shapes the prove path does not reach are covered here: ragged hash counts,
-every row length 2..8192 for both row kernels (DIT and Pease) at ragged batch
-sizes, each fused option of `ntt_rows` alone and all together, ragged
-transposes with a missing tail, the second prime, both four-step routes, the
+every row length 2..8192 for both row kernels (DIT and Pease, the Pease
+kernel in both orders) at ragged batch sizes, each fused option of both
+alone and all together, the batch period of the three row kernels, ragged
+and batched transposes with a missing tail and bit-reversed rows, the second
+prime, both four-step routes and batched LDEs on each, the
 LDE entry points against the CPU, the Fiat-Shamir chain kernel at every entry
 point and ragged chain counts, the FRI fold at every layer size from 2 words
 up and ragged proof counts, the fused, batched and pipelined provers against
@@ -141,12 +143,16 @@ def test_transpose_ragged(dev, rows, cols, missing):
 @pytest.mark.parametrize("field", [fp.FIELD101, fp.FIELD_ALT], ids=["p101", "alt"])
 @pytest.mark.parametrize("log_m", range(1, 14))
 def test_ntt_rows_pease_every_length(dev, field, log_m):
+    """Both orders: natural (the `ntt_rows` contract) and bit-reversed (the
+    TPU kernel's)."""
     m = 1 << log_m
     rng = np.random.default_rng(100 + log_m)
     x = fp.from_host(field.host_to_mont(rng.integers(0, field.p, (3, m), dtype=np.uint64)), dev)
     w = ntt_core.forward_plan(m, field).root
-    tw = ntt_kernel.pease_twiddles(m, w, field)
-    _eq(ntt_kernel.ntt_rows_pease(x, w, field), ntt_kernel.ntt_rows_pease_plain(x, tw, field))
+    for bitrev in (False, True):
+        _eq(ntt_kernel.ntt_rows_pease(x, w, field, bitrev=bitrev),
+            ntt_kernel.ntt_rows_pease_plain(x, w, field, bitrev=bitrev))
+    _eq(ntt_kernel.ntt_rows_pease(x, w, field), ntt_kernel.ntt_rows(x, w, field))
 
 
 @pytest.mark.parametrize("batch", [1, 2, 257])
@@ -155,8 +161,9 @@ def test_ntt_rows_pease_ragged_batches(dev, log_m, batch):
     field, m = fp.FIELD101, 1 << log_m
     x = _rand_mont(field, (batch, m), 200 + log_m, dev)
     w = ntt_core.forward_plan(m, field).root
-    tw = ntt_kernel.pease_twiddles(m, w, field)
-    _eq(ntt_kernel.ntt_rows_pease(x, w, field), ntt_kernel.ntt_rows_pease_plain(x, tw, field))
+    for bitrev in (False, True):
+        _eq(ntt_kernel.ntt_rows_pease(x, w, field, bitrev=bitrev),
+            ntt_kernel.ntt_rows_pease_plain(x, w, field, bitrev=bitrev))
 
 
 def test_ntt_rows_pease_edge_values(dev):
@@ -167,8 +174,103 @@ def test_ntt_rows_pease_edge_values(dev):
                     + [np.where(np.arange(m) % 2 == 0, p - 1, 0).astype(np.uint32)])
     x = fp.from_host(rows, dev)
     w = ntt_core.forward_plan(m, field).root
-    tw = ntt_kernel.pease_twiddles(m, w, field)
-    _eq(ntt_kernel.ntt_rows_pease(x, w, field), ntt_kernel.ntt_rows_pease_plain(x, tw, field))
+    for bitrev in (False, True):
+        _eq(ntt_kernel.ntt_rows_pease(x, w, field, bitrev=bitrev),
+            ntt_kernel.ntt_rows_pease_plain(x, w, field, bitrev=bitrev))
+
+
+@FIELDS
+@pytest.mark.parametrize("bitrev", [False, True], ids=["natural", "bitrev"])
+@pytest.mark.parametrize("option", ["short", "pre", "pre_rows", "uv", "post", "scale", "all"])
+@pytest.mark.parametrize("log_m", range(1, 14))
+def test_ntt_rows_pease_fused_options(dev, field, log_m, option, bitrev):
+    """The `ntt_rows` contract on the Pease kernel: each fused option alone
+    and all together, a short valid prefix wherever a pre-scale is on, at an
+    even and an odd batch, in both orders; in natural order equal to
+    `ntt_rows` too."""
+    m = 1 << log_m
+    for batch in (3, 6):
+        opts = _fused_options(field, batch, m, dev, 31 * log_m + batch)
+        if option == "all":
+            kw = {k: v for name in ("pre_rows", "uv", "post", "scale") for k, v in opts[name].items()}
+        else:
+            kw = opts.get(option, {})
+        short = option in ("short", "pre", "pre_rows", "all")
+        valid = max(1, m // 8 + (log_m % 2)) if short else m
+        x = _rand_mont(field, (batch, valid), log_m, dev)
+        w = ntt_core.forward_plan(m, field).root
+        got = ntt_kernel.ntt_rows_pease(x, w, field, m=m, bitrev=bitrev, **kw)
+        _eq(got, ntt_kernel.ntt_rows_pease_plain(x, w, field, m=m, bitrev=bitrev, **kw))
+        if not bitrev:
+            _eq(got, ntt_kernel.ntt_rows(x, w, field, m=m, **kw))
+
+
+def _period_kernels():
+    return {
+        "ntt_rows": (ntt_kernel.ntt_rows, ntt_kernel.ntt_rows_plain, {}),
+        "pease": (ntt_kernel.ntt_rows_pease, ntt_kernel.ntt_rows_pease_plain, {}),
+        "pease_bitrev": (ntt_kernel.ntt_rows_pease, ntt_kernel.ntt_rows_pease_plain,
+                         {"bitrev": True}),
+        "limb": (limb_dft.limb_dft_rows, limb_dft.limb_dft_rows_plain, {}),
+    }
+
+
+PERIOD_CASES = [(k, log_m) for k in ("ntt_rows", "pease", "pease_bitrev")
+                for log_m in (1, 2, 4, 10, 12, 13)] + [("limb", log_m) for log_m in (7, 10, 13, 14)]
+
+
+@FIELDS
+@pytest.mark.parametrize("kernel,log_m", PERIOD_CASES)
+def test_row_kernels_period(dev, field, kernel, log_m):
+    """``period=``: B transforms of `period` rows each in one launch take the
+    factors of one transform (pre-scale, U·V twiddle, post-scale, scalar),
+    equal to the plain twin and to B separate launches, distinct rows."""
+    fn, plain, extra = _period_kernels()[kernel]
+    m, period, copies = 1 << log_m, 4, 3
+    geo = ntt_kernel.GeoScale
+    size = 1 << (2 * period * m).bit_length()
+    kw = dict(pre=geo(7, size, col_stride=period, row_stride=1),
+              uv=(_rand_mont(field, (period // 2, m), 5, dev), _rand_mont(field, (2, m), 6, dev)),
+              post=geo(11, size, col_stride=period, row_stride=1),
+              scale=field.mont_scalar(3))
+    valid = max(1, m // 4)
+    x = _rand_mont(field, (copies * period, valid), log_m, dev)
+    w = ntt_core.forward_plan(m, field).root
+    got = fn(x, w, field, m=m, period=period, **kw, **extra)
+    _eq(got, plain(x, w, field, m=m, period=period, **kw, **extra))
+    for c in range(copies):
+        one = fn(x[c * period : (c + 1) * period].contiguous(), w, field, m=m, **kw, **extra)
+        _eq(got[c * period : (c + 1) * period], one)
+
+
+@pytest.mark.parametrize(
+    "batch,rows,cols,missing,brev",
+    [(1, 32, 32, 0, True), (3, 33, 64, 0, True), (4, 7, 1024, 13, True), (5, 1000, 8, 6999, False),
+     (2, 512, 4096, 4096 * 448, False), (16, 64, 128, 0, True), (2, 257, 2, 1, True),
+     (3, 1, 1, 0, True)],
+)
+def test_transpose_batched(dev, batch, rows, cols, missing, brev):
+    """B stacked matrices in one launch, each with a missing tail, output
+    rows in bit-reversed order where asked, against the plain twin and one
+    launch a matrix."""
+    valid = rows * cols - missing
+    x = fp.from_host(_u32((batch, valid), rows + batch), dev)
+    moved = ntt_kernel.transpose_launches
+    got = ntt_kernel.transpose(x, rows, cols, brev=brev)
+    assert ntt_kernel.transpose_launches == moved + 1
+    assert got.shape == (batch * cols, rows)
+    _eq(got, ntt_kernel.transpose_plain(x, rows, cols, brev=brev))
+    for b in range(batch):
+        one = ntt_kernel.transpose(x[b].contiguous(), rows, cols, brev=brev)
+        _eq(got[b * cols : (b + 1) * cols], one)
+
+
+@pytest.mark.parametrize("batch,rows,cols,elem,missing", [(3, 16, 8, 8, 24), (2, 4, 3, 2, 5),
+                                                          (4, 8, 2, 4, 64)])
+def test_transpose_blocks_batched(dev, batch, rows, cols, elem, missing):
+    x = fp.from_host(_u32((batch, rows * cols * elem - missing), rows + elem), dev)
+    _eq(ntt_kernel.transpose(x, rows, cols, elem=elem),
+        ntt_kernel.transpose_plain(x, rows, cols, elem=elem))
 
 
 def _chain_inputs(lead, seed, dev):
@@ -311,13 +413,46 @@ def test_batch_and_pipelined_on_card(dev):
 
 
 def test_batched_fourstep_on_card(dev):
-    """A batch at a four-step domain (2^14 points) loops over the proofs."""
+    """A batch at a four-step domain (2^14 points) of two distinct witnesses
+    (s and p − s share the public output) equals the solo proofs; its LDE is
+    one four-step, 5 launches, for the whole batch."""
+    from zkstark_tpu_torch import ops
     from zkstark_tpu_torch.protocol import prove
     from zkstark_tpu_torch.protocol.batch import prove_batch
 
     cfg = _small_cfg(2047, "square-chain", secret=271828)
-    want = prove(cfg, 271828, device=dev, fused=False)
-    assert prove_batch(cfg, [271828] * 2, device=dev) == [want] * 2
+    secrets = [271828, fp.P - 271828, 271828]
+    want = [prove(cfg, s, device=dev, fused=False) for s in secrets]
+    assert want[0] != want[1]
+    ops.reset_launch_counts()
+    assert prove_batch(cfg, secrets, device=dev) == want
+    counts = ops.launch_counts()
+    assert counts["transpose"] == 3
+
+
+@FIELDS
+@pytest.mark.parametrize("pease", ["off", "on"])
+@pytest.mark.parametrize("batch", [1, 3, 4])
+def test_batched_lde_on_card(dev, monkeypatch, field, pease, batch):
+    """coset_ntt, intt and coset_intt of a batch of distinct rows at 2^14:
+    one four-step (2 row launches, 3 transposes) each, equal to the CPU and
+    to one transform a row."""
+    monkeypatch.setenv("ZKSTARK_PEASE", pease)
+    n = 1 << 14
+    coeffs = _rand_mont(field, (batch, n // 8), batch, dev)
+    rows = "pease_launches" if pease == "on" else "ntt_launches"
+    before = getattr(ntt_kernel, rows), ntt_kernel.transpose_launches
+    evals = ntt_core.coset_ntt(coeffs, n, 5, field)
+    assert (getattr(ntt_kernel, rows), ntt_kernel.transpose_launches) == (before[0] + 2,
+                                                                          before[1] + 3)
+    _eq(evals, ntt_core.coset_ntt(coeffs.cpu(), n, 5, field))
+    for b in range(batch):
+        _eq(evals[b], ntt_core.coset_ntt(coeffs[b].contiguous(), n, 5, field))
+    plan = ntt_core.inverse_plan(n, field)
+    _eq(ntt_core.intt(evals, plan), ntt_core.intt(evals.cpu(), plan))
+    back = ntt_core.coset_intt(evals, 5, field)
+    _eq(back[:, : n // 8], coeffs)
+    assert not fp.to_host(back)[:, n // 8 :].any()
 
 
 @pytest.mark.parametrize("pease", ["off", "on"])
@@ -331,7 +466,7 @@ def test_fourstep_on_card_equals_cpu(dev, monkeypatch, pease):
     moved = ntt_kernel.transpose_launches
     _eq(ntt_core.ntt(fp.from_host(x, dev), plan), ntt_core.ntt(fp.from_host(x, "cpu"), plan))
     assert getattr(ntt_kernel, counter) == before + 2
-    assert ntt_kernel.transpose_launches == moved + (0 if pease == "on" else 3)
+    assert ntt_kernel.transpose_launches == moved + 3
 
 
 @FIELDS

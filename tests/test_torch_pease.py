@@ -1,11 +1,17 @@
 """The port's Pease route equals the JAX package's, exactly (tolerance 0).
 
-  * `ntt_rows_pease_plain` on the transposed block equals the JAX Pallas
-    kernel `_pease_cols_call` run in interpret mode (as
+  * `ntt_rows_pease_plain` in its bit-reversed mode on the transposed block
+    equals the JAX Pallas kernel `_pease_cols_call` run in interpret mode (as
     tests/test_pallas_grid.py runs it), for m ∈ {2, 16, 256, 1024} and both
     primes: natural order in, bit-reversed order out;
+  * `ntt_rows_pease_plain` takes the contract of `ntt_rows_plain` (``m=``,
+    ``pre``, ``uv``, ``post``, ``scale``): equal to it word for word in
+    natural order, and permuted in bit-reversed order;
   * `ntt_fourstep` with ZKSTARK_PEASE=on equals the JAX `ntt.ntt` / `ntt.intt`
-    at 2^14 and 2^16, and the DIT route at small n;
+    at 2^14 and 2^16, the JAX `ntt_fourstep` on its Pease route (interpret
+    mode) with and without the coset offsets and the inverse scale, and the
+    DIT route; it is the same five kernel calls as the DIT route, and the
+    former plain-torch glue is gone;
   * `ntt_rows_pease` takes its plain twin on a CPU tensor and counts no
     launch.
 
@@ -23,6 +29,7 @@ from zkstark_tpu.field import fp as jfp
 from zkstark_tpu.ops import ntt_kernel as jkernel
 from zkstark_tpu_torch import ntt as tntt
 from zkstark_tpu_torch.field import fp as tfp
+from zkstark_tpu_torch.ntt.core import bit_reverse_indices
 from zkstark_tpu_torch.ops import ntt_kernel
 
 FIELDS = [tfp.FIELD101, tfp.FIELD_ALT]
@@ -51,9 +58,7 @@ def test_pease_rows_match_jax_kernel(fld, m):
     want = jkernel._pease_cols_call(
         jnp.asarray(x), jnp.asarray(jkernel._pease_twiddle_table(m, w, jf)), True, jf
     )
-    got = ntt_kernel.ntt_rows_pease_plain(
-        _t(np.ascontiguousarray(x.T)), ntt_kernel.pease_twiddles(m, w, fld), fld
-    )
+    got = ntt_kernel.ntt_rows_pease_plain(_t(np.ascontiguousarray(x.T)), w, fld, bitrev=True)
     np.testing.assert_array_equal(tfp.to_host(got).T, np.asarray(want))
 
 
@@ -114,3 +119,97 @@ def test_pease_wrapper_checks_input():
         ntt_kernel.ntt_rows_pease(tfp.zeros((1, 12), "cpu"), 1)
     with pytest.raises(ValueError):
         ntt_kernel.ntt_rows_pease(tfp.zeros((1, 16384), "cpu"), 1)
+
+
+def _options(fld, batch, m, seed):
+    """Every fused option of the row contract for a (batch, m) block."""
+    geo = ntt_kernel.GeoScale
+    size = 1 << (2 * batch * m).bit_length()
+    return {
+        "pre": dict(pre=geo(5, m)),
+        "pre_rows": dict(pre=geo(7, size, col_stride=batch, row_stride=1)),
+        "uv": dict(uv=(_t(_rand_mont(fld, (batch // 2, m), seed)),
+                       _t(_rand_mont(fld, (2, m), seed + 1)))),
+        "post": dict(post=geo(11, size, col_stride=batch, row_stride=1)),
+        "scale": dict(scale=fld.mont_scalar(pow(m, fld.p - 2, fld.p))),
+    }
+
+
+@pytest.mark.parametrize("fld", FIELDS, ids=["p101", "alt"])
+@pytest.mark.parametrize("option", ["short", "pre", "pre_rows", "uv", "post", "scale", "all"])
+@pytest.mark.parametrize("m", [2, 8, 64, 512])
+def test_pease_plain_contract_equals_dit(fld, m, option):
+    """`ntt_rows_pease_plain` takes the contract of `ntt_rows_plain`: in
+    natural order the same words with each option alone and all together;
+    in bit-reversed order those words with their columns permuted, the U·V
+    tables handed over permuted the same way."""
+    batch = 6
+    opts = _options(fld, batch, m, m)
+    if option == "all":
+        kw = {k: v for name in ("pre_rows", "uv", "post", "scale") for k, v in opts[name].items()}
+    else:
+        kw = opts.get(option, {})
+    valid = max(1, m // 8 + 1) if option in ("short", "pre", "pre_rows", "all") else m
+    x = _t(_rand_mont(fld, (batch, valid), m + 1))
+    w = tntt.forward_plan(m, fld).root
+    dit = tfp.to_host(ntt_kernel.ntt_rows_plain(x, w, fld, m=m, **kw))
+    np.testing.assert_array_equal(tfp.to_host(ntt_kernel.ntt_rows_pease_plain(x, w, fld, m=m, **kw)),
+                                  dit)
+    br = bit_reverse_indices(m).astype(np.int64)
+    if "uv" in kw:
+        kw["uv"] = tuple(t[:, torch.from_numpy(br)].contiguous() for t in kw["uv"])
+    got = ntt_kernel.ntt_rows_pease_plain(x, w, fld, m=m, bitrev=True, **kw)
+    np.testing.assert_array_equal(tfp.to_host(got), dit[:, br])
+
+
+@pytest.mark.parametrize("pre,post,inverse", [(None, None, False), (5, None, False),
+                                              (None, 7, True), (3, 7, True)],
+                         ids=["bare", "pre", "post_inverse", "all"])
+@pytest.mark.parametrize("n", [1 << 14, 1 << 16])
+def test_fourstep_pease_offsets_match_jax(monkeypatch, n, pre, post, inverse):
+    """`ntt_fourstep` on the Pease route, with the coset offsets on load and
+    on store and the inverse scale, against the JAX `ntt_fourstep` on its
+    Pease route (the Pallas kernel in interpret mode) with the offsets as
+    host powers around it, and against the port's DIT route; a short input
+    where a pre-scale is on."""
+    fld = tfp.FIELD101
+    jf = jfp.field_for(fld.p)
+    k = n // 8 if pre else n
+    x = _rand_mont(fld, k, seed=n + 3 * bool(pre) + bool(post))
+    w = tntt.forward_plan(n).root
+    scale = fld.mont_scalar(pow(n, fld.p - 2, fld.p)) if inverse else None
+
+    def powers(base):
+        return jnp.asarray(fld.host_to_mont(fld.host_powers_pow2(base, n)))
+
+    monkeypatch.setenv("ZKSTARK_PEASE", "on")
+    monkeypatch.setenv("ZKSTARK_PALLAS", "interpret")
+    xj = jnp.asarray(np.concatenate([x, np.zeros(n - k, dtype=np.uint32)]))
+    if pre:
+        xj = jfp.mont_mul_f(jf, xj, powers(pre))
+    want = jkernel.ntt_fourstep(xj, n, w, scale, jf)
+    if post:
+        want = jfp.mont_mul_f(jf, want, powers(post))
+    got = ntt_kernel.ntt_fourstep(_t(x), n, w, scale, fld, pre_offset=pre, post_offset=post)
+    np.testing.assert_array_equal(tfp.to_host(got), np.asarray(want))
+    monkeypatch.setenv("ZKSTARK_PEASE", "off")
+    dit = ntt_kernel.ntt_fourstep(_t(x), n, w, scale, fld, pre_offset=pre, post_offset=post)
+    np.testing.assert_array_equal(tfp.to_host(got), tfp.to_host(dit))
+
+
+def test_pease_route_is_the_five_kernel_calls(pease_on, monkeypatch):
+    """The Pease four-step is the same five calls as the DIT route (three
+    transposes, two Pease row calls, nothing between them) and its former
+    plain-torch glue is gone from the module."""
+    for gone in ("_fourstep_pease", "_transpose", "_transpose_gather", "_apply_twiddle_t",
+                 "_pease_fourstep_constants"):
+        assert not hasattr(ntt_kernel, gone), gone
+    calls = []
+    for name in ("transpose", "ntt_rows", "ntt_rows_pease"):
+        real = getattr(ntt_kernel, name)
+        monkeypatch.setattr(ntt_kernel, name,
+                            lambda *a, _real=real, _name=name, **kw: calls.append(_name) or _real(*a, **kw))
+    n = 1 << 14
+    x = _t(_rand_mont(tfp.FIELD101, (3, n // 8), seed=9))
+    tntt.coset_ntt(x, n, 5)
+    assert calls == ["transpose", "ntt_rows_pease", "transpose", "ntt_rows_pease", "transpose"]

@@ -54,7 +54,9 @@
 // contracts 1/blowup of k1). Stage 1 writes a[t][j2]·w^{t·j2} into Y; stage 2
 // stores output t + k1·s, times the four-step twiddle
 // ut[r >> vlog][o]·vt[r & vmask][o], a geometric post-scale and a scalar,
-// where given, to device memory as 8-byte pairs with streaming hints.
+// where given, to device memory as 8-byte pairs with streaming hints. The row
+// r of every factor (the pre-scale's too) is the row masked by `pmask`, the
+// batch period of ntt.cu: only the index changes, not the pipeline.
 //
 // What limits it now (NVIDIA H100 80GB HBM3, 700 W; the times are in PERF.md):
 // with the epilogue switched off the products alone take 1.5 times the tensor
@@ -106,6 +108,7 @@ struct LimbArgs {
   int vlog;
   uint32_t scale;
   int has_scale;
+  uint32_t pmask;  // the row of the factors is r & pmask (the batch period)
   Fp f;
 };
 
@@ -481,7 +484,9 @@ __device__ __forceinline__ void load_row(const LimbArgs& a, uint32_t row, uint8_
         const int idx = (4 * q + d) * k2 + 4 * jb;
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          if (idx + c < a.valid) e[d][c] = fp_mul_r(e[d][c], geo_factor(a.pre, row, idx + c, f), f);
+          if (idx + c < a.valid) {
+            e[d][c] = fp_mul_r(e[d][c], geo_factor(a.pre, row & a.pmask, idx + c, f), f);
+          }
         }
       }
     }
@@ -593,9 +598,10 @@ __global__ void __launch_bounds__(kThreads, 1) limb_dft_rows_kernel(const LimbAr
     bar_sync<kBarY, 128 * kConsumers>();  // Y is whole
     // stage 2: contract j2 (Y[n = t][j2]); output index t + k1·s
     uint32_t* orow = a.out + (static_cast<int64_t>(row) << log_m);
-    const uint32_t* ur = twiddle ? a.ut + (static_cast<int64_t>(row >> a.vlog) << log_m) : nullptr;
+    const uint32_t prow = row & a.pmask;
+    const uint32_t* ur = twiddle ? a.ut + (static_cast<int64_t>(prow >> a.vlog) << log_m) : nullptr;
     const uint32_t* vr =
-        twiddle ? a.vt + (static_cast<int64_t>(row & ((1u << a.vlog) - 1u)) << log_m) : nullptr;
+        twiddle ? a.vt + (static_cast<int64_t>(prow & ((1u << a.vlog) - 1u)) << log_m) : nullptr;
     // the factor of output o: the four-step twiddle, the post-scale, the scalar
     dft_stage<k1, true>(
         feed, consumed, smem_u32(y), 32u * k2, pairs2, ksteps2, k2, f, elected,
@@ -617,7 +623,7 @@ __global__ void __launch_bounds__(kThreads, 1) limb_dft_rows_kernel(const LimbAr
           }
           if (a.post.a != nullptr) {
             const uint2 q =
-                make_uint2(geo_factor(a.post, row, o, f), geo_factor(a.post, row, o + 1, f));
+                make_uint2(geo_factor(a.post, prow, o, f), geo_factor(a.post, prow, o + 1, f));
             c = have ? make_uint2(fp_mul_r(c.x, q.x, f), fp_mul_r(c.y, q.y, f)) : q;
             have = true;
           }
@@ -660,8 +666,8 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 // natural order in and out. af1, af2: the tile-ordered limb matrices of the
 // two stages; tw: the (k1, k2) in-row twiddle. pre_*/post_*: the geometric
 // factor on load / on store (a null: off). ut, vt: the twiddle tables (null:
-// off), 1 << vlog rows in vt. has_scale: every output times `scale`. out, tw,
-// ut and vt must be 8-byte aligned.
+// off), 1 << vlog rows in vt. has_scale: every output times `scale`. The
+// factors take row r & pmask. out, tw, ut and vt must be 8-byte aligned.
 extern "C" int zk_limb_dft_rows(const uint32_t* x, uint32_t* out, const uint32_t* af1,
                                 const uint32_t* af2, const uint32_t* tw, int log_k1, int log_k2,
                                 int64_t batch, int valid, const uint32_t* pre_a,
@@ -669,7 +675,8 @@ extern "C" int zk_limb_dft_rows(const uint32_t* x, uint32_t* out, const uint32_t
                                 uint32_t pre_rs, const uint32_t* post_a, const uint32_t* post_b,
                                 int post_shift, uint32_t post_es, uint32_t post_rs,
                                 const uint32_t* ut, const uint32_t* vt, int vlog, uint32_t scale,
-                                int has_scale, uint32_t p, uint32_t pinv, cudaStream_t stream) {
+                                int has_scale, uint32_t pmask, uint32_t p, uint32_t pinv,
+                                cudaStream_t stream) {
   const auto misaligned8 = [](const void* q) { return (reinterpret_cast<uintptr_t>(q) & 7u) != 0u; };
   if (log_k1 < 4 || log_k1 > 7 || log_k2 < 3 || log_k2 > log_k1 || log_k1 - log_k2 > 1 ||
       batch < 0 || batch > 0x7fffffff || valid < 1 || valid > (1 << (log_k1 + log_k2)) ||
@@ -695,6 +702,7 @@ extern "C" int zk_limb_dft_rows(const uint32_t* x, uint32_t* out, const uint32_t
   a.vlog = vlog;
   a.scale = scale;
   a.has_scale = has_scale;
+  a.pmask = pmask;
   a.f = Fp{p, pinv};
   cudaError_t rc = cudaErrorInvalidValue;
   switch (log_k1 * 8 + log_k2) {

@@ -23,6 +23,10 @@
 //   store  the natural-order result (16-byte stores), each word times
 //          ut[r >> vlog][i]·vt[r & vmask][i] (the four-step twiddle), times a
 //          geometric factor as on load, times a scalar, where given.
+// The row r of every factor is the block's row masked by `pmask`: the rows of
+// one transform (a power of two, the batch period), so that a batch of B
+// four-step transforms is one launch of B times the rows, each transform's
+// rows taking the same factors.
 //
 // The twiddles of a pass are read once per radix-R task into registers from
 // a table laid out pass by pass: the pass with Ns = 2^s starts at offset
@@ -62,6 +66,7 @@ struct RowsArgs {
   int vlog;
   uint32_t scale;
   int has_scale;
+  uint32_t pmask;  // the row of the factors is r & pmask
   Fp f;
 };
 
@@ -187,6 +192,7 @@ __global__ void __launch_bounds__(block_threads(LOG_M)) ntt_rows_kernel(const Ro
   uint32_t* buf0 = smem;
   uint32_t* buf1 = smem + buffer_words(LOG_M);
   const uint32_t row = blockIdx.x;
+  const uint32_t prow = row & a.pmask;
   const Fp f = a.f;
   const int tid = threadIdx.x;
 
@@ -198,14 +204,14 @@ __global__ void __launch_bounds__(block_threads(LOG_M)) ntt_rows_kernel(const Ro
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int i = 4 * q + k;
-        if (a.pre.a != nullptr) e[k] = fp_mul_r(e[k], geo_factor(a.pre, row, i, f), f);
+        if (a.pre.a != nullptr) e[k] = fp_mul_r(e[k], geo_factor(a.pre, prow, i, f), f);
         buf0[pad(i)] = e[k];
       }
     }
   } else {
     for (int i = tid; i < a.valid; i += THREADS) {
       uint32_t e = __ldg(xr + i);
-      if (a.pre.a != nullptr) e = fp_mul_r(e, geo_factor(a.pre, row, i, f), f);
+      if (a.pre.a != nullptr) e = fp_mul_r(e, geo_factor(a.pre, prow, i, f), f);
       buf0[pad(i)] = e;
     }
   }
@@ -217,9 +223,9 @@ __global__ void __launch_bounds__(block_threads(LOG_M)) ntt_rows_kernel(const Ro
 
   uint32_t* orow = a.out + (static_cast<int64_t>(row) << LOG_M);
   const bool twiddle = a.ut != nullptr;
-  const uint32_t* ur = twiddle ? a.ut + (static_cast<int64_t>(row >> a.vlog) << LOG_M) : nullptr;
+  const uint32_t* ur = twiddle ? a.ut + (static_cast<int64_t>(prow >> a.vlog) << LOG_M) : nullptr;
   const uint32_t* vr =
-      twiddle ? a.vt + (static_cast<int64_t>(row & ((1u << a.vlog) - 1u)) << LOG_M) : nullptr;
+      twiddle ? a.vt + (static_cast<int64_t>(prow & ((1u << a.vlog) - 1u)) << LOG_M) : nullptr;
   if (a.vec_out) {
     for (int q = tid; q < (M >> 2); q += THREADS) {
       uint4 u = make_uint4(0u, 0u, 0u, 0u);
@@ -231,17 +237,17 @@ __global__ void __launch_bounds__(block_threads(LOG_M)) ntt_rows_kernel(const Ro
       const int i = 4 * q;
       const int pi = pad(i);  // i..i+3 share one group of 32
       uint4 o;
-      o.x = post_ops(res[pi], u.x, w.x, row, i, a);
-      o.y = post_ops(res[pi + 1], u.y, w.y, row, i + 1, a);
-      o.z = post_ops(res[pi + 2], u.z, w.z, row, i + 2, a);
-      o.w = post_ops(res[pi + 3], u.w, w.w, row, i + 3, a);
+      o.x = post_ops(res[pi], u.x, w.x, prow, i, a);
+      o.y = post_ops(res[pi + 1], u.y, w.y, prow, i + 1, a);
+      o.z = post_ops(res[pi + 2], u.z, w.z, prow, i + 2, a);
+      o.w = post_ops(res[pi + 3], u.w, w.w, prow, i + 3, a);
       reinterpret_cast<uint4*>(orow)[q] = o;
     }
   } else {
     for (int i = tid; i < M; i += THREADS) {
       const uint32_t u = twiddle ? __ldg(ur + i) : 0u;
       const uint32_t w = twiddle ? __ldg(vr + i) : 0u;
-      orow[i] = post_ops(res[pad(i)], u, w, row, i, a);
+      orow[i] = post_ops(res[pad(i)], u, w, prow, i, a);
     }
   }
 }
@@ -269,15 +275,15 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 // table; w8_*: W8, W4, W8^3 for W8 = w^{m/8} (unused where m is too short for
 // them). pre_*/post_*: the geometric factor on load / on store (a null: off).
 // ut, vt: the twiddle tables (null: off), 1 << vlog rows in vt. has_scale:
-// every output times `scale`.
+// every output times `scale`. The factors take row r & pmask.
 extern "C" int zk_ntt_rows(const uint32_t* x, uint32_t* out, const uint32_t* tw, int log_m,
                            int64_t batch, int valid, uint32_t w8_1, uint32_t w8_2, uint32_t w8_3,
                            const uint32_t* pre_a, const uint32_t* pre_b, int pre_shift,
                            uint32_t pre_es, uint32_t pre_rs, const uint32_t* post_a,
                            const uint32_t* post_b, int post_shift, uint32_t post_es,
                            uint32_t post_rs, const uint32_t* ut, const uint32_t* vt, int vlog,
-                           uint32_t scale, int has_scale, uint32_t p, uint32_t pinv,
-                           cudaStream_t stream) {
+                           uint32_t scale, int has_scale, uint32_t pmask, uint32_t p,
+                           uint32_t pinv, cudaStream_t stream) {
   if (log_m < 1 || log_m > 13 || batch < 0 || batch > 0x7fffffff || valid < 0 ||
       valid > (1 << log_m) || vlog < 0 || vlog > 30 || (ut == nullptr) != (vt == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -301,6 +307,7 @@ extern "C" int zk_ntt_rows(const uint32_t* x, uint32_t* out, const uint32_t* tw,
   a.vlog = vlog;
   a.scale = scale;
   a.has_scale = has_scale;
+  a.pmask = pmask;
   a.f = Fp{p, pinv};
   cudaError_t rc = cudaErrorInvalidValue;
   switch (log_m) {

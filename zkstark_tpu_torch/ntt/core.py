@@ -8,16 +8,17 @@ only on the size n, never on the device:
   * larger n: the four-step factorization (`ops.ntt_kernel.ntt_fourstep`),
     whose two passes of row transforms are `ntt_rows` calls as well (past
     2^26, where a factor exceeds the longest `ntt_rows` row, and under
-    ``ZKSTARK_MXU=on``: `limb_dft.limb_dft_rows`; sizes above 2^28 raise);
-    leading axes are then transformed one flat vector at a time.
+    ``ZKSTARK_MXU=on``: `limb_dft.limb_dft_rows`; under ``ZKSTARK_PEASE=on``:
+    `ntt_rows_pease`; sizes above 2^28 raise); the leading axes are one batch
+    of the same five launches, whatever their size.
 
 Evaluation on the coset offset·⟨h⟩ (prover.rs:69) is a pointwise pre-scale by
 offset^j followed by a plain NTT. The pre-scale, the zero tail of a short
 coefficient vector, an INTT's 1/n and the inverse coset scale are all handed
 to `ntt_rows`, which applies them on load or on store: on a CUDA tensor
 `ntt`, `intt`, `coset_ntt` and `coset_intt` launch hand-written kernels only
-(csrc/ntt.cu, csrc/transpose.cu, csrc/limb_dft.cu), on a CPU tensor the kernels' plain-torch
-twins, so the CPU tests run the same glue.
+(csrc/ntt.cu, csrc/transpose.cu, csrc/limb_dft.cu, csrc/ntt_pease.cu), on a
+CPU tensor the kernels' plain-torch twins, so the CPU tests run the same glue.
 """
 
 from __future__ import annotations
@@ -89,27 +90,20 @@ def _transform(x: torch.Tensor, plan: NttPlan, scaled: bool, pre=None, post=None
     n, field = plan.n, plan.field
     w = _effective_root(plan)
     scale = plan.scale_mont if scaled else None
-    if n >= ntt_kernel.MIN_FOURSTEP:
-        if x.dim() > 1:  # the four-step takes one flat vector: one proof at a time
-            rows = fp.as_i32(x).reshape(-1, x.shape[-1]).unbind(0)
-            outs = [fp.as_i32(_transform(fp.as_u32(r), plan, scaled, pre, post)) for r in rows]
-            whole = outs[0] if len(outs) == 1 else torch.stack(outs)  # one row: no copy
-            return fp.as_u32(whole.reshape(x.shape[:-1] + (n,)))
-        return ntt_kernel.ntt_fourstep(
-            fp.as_u32(fp.as_i32(x).contiguous()), n, w, scale, field,
-            pre_offset=pre, post_offset=post,
-        )
     rows = fp.as_u32(fp.as_i32(x).reshape(-1, x.shape[-1]).contiguous())
-    geo = ntt_kernel.GeoScale
-    out = ntt_kernel.ntt_rows(
-        rows,
-        w,
-        field,
-        m=n,
-        pre=None if pre is None else geo(pre, n),
-        post=None if post is None else geo(post, n),
-        scale=scale,
-    )
+    if n >= ntt_kernel.MIN_FOURSTEP:  # the whole batch in one four-step
+        out = ntt_kernel.ntt_fourstep(rows, n, w, scale, field, pre_offset=pre, post_offset=post)
+    else:
+        geo = ntt_kernel.GeoScale
+        out = ntt_kernel.ntt_rows(
+            rows,
+            w,
+            field,
+            m=n,
+            pre=None if pre is None else geo(pre, n),
+            post=None if post is None else geo(post, n),
+            scale=scale,
+        )
     return out.reshape(x.shape[:-1] + (n,))
 
 

@@ -41,16 +41,22 @@ _SIGNATURES = {
     "zk_sha256_tree_tail": (_P, _P, _I64, _INT, _INT, _P),
     # (x, out, pass_tw, log_m, batch, valid, w8, w4, w8^3,
     #  pre: a, b, shift, col_stride, row_stride, post: the same five,
-    #  ut, vt, log2(vblk), scale, has_scale, p, p_inv_neg, stream)
+    #  ut, vt, log2(vblk), scale, has_scale, period - 1, p, p_inv_neg, stream)
     "zk_ntt_rows": (
         _P, _P, _P, _INT, _I64, _INT, _U32, _U32, _U32,
         _P, _P, _INT, _U32, _U32, _P, _P, _INT, _U32, _U32,
-        _P, _P, _INT, _U32, _INT, _U32, _U32, _P,
+        _P, _P, _INT, _U32, _INT, _U32, _U32, _U32, _P,
     ),
-    # (src, dst, rows, cols, elem, valid, stream)
-    "zk_transpose": (_P, _P, _INT, _INT, _INT, _I64, _P),
-    # (x, out, tw, log_m, batch, p, p_inv_neg, stream)
-    "zk_ntt_rows_pease": (_P, _P, _P, _INT, _I64, _U32, _U32, _P),
+    # (src, dst, rows, cols, elem, valid, batch, brev, stream)
+    "zk_transpose": (_P, _P, _INT, _INT, _INT, _I64, _I64, _INT, _P),
+    # (x, out, tw, log_m, batch, valid,
+    #  pre: a, b, shift, col_stride, row_stride, post: the same five,
+    #  ut, vt, log2(vblk), scale, has_scale, period - 1, bitrev, p, p_inv_neg, stream)
+    "zk_ntt_rows_pease": (
+        _P, _P, _P, _INT, _I64, _INT,
+        _P, _P, _INT, _U32, _U32, _P, _P, _INT, _U32, _U32,
+        _P, _P, _INT, _U32, _INT, _U32, _INT, _U32, _U32, _P,
+    ),
     # (state_in, state_out, digest, digest_stride, word, n_draws, draws, mont, mod,
     #  query_range, r2, p, p_inv_neg, chains, stream)
     "zk_fs_chain": (_P, _P, _P, _I64, _P, _INT, _P, _P, _P, _U32, _U32, _U32, _U32, _I64, _P),
@@ -59,11 +65,11 @@ _SIGNATURES = {
     "zk_fri_fold": (_P, _P, _P, _P, _INT, _P, _P, _I64, _I64, _U32, _U32, _U32, _U32, _P),
     # (x, out, af1, af2, tw, log_k1, log_k2, batch, valid,
     #  pre: a, b, shift, col_stride, row_stride, post: the same five,
-    #  ut, vt, log2(vblk), scale, has_scale, p, p_inv_neg, stream)
+    #  ut, vt, log2(vblk), scale, has_scale, period - 1, p, p_inv_neg, stream)
     "zk_limb_dft_rows": (
         _P, _P, _P, _P, _P, _INT, _INT, _I64, _INT,
         _P, _P, _INT, _U32, _U32, _P, _P, _INT, _U32, _U32,
-        _P, _P, _INT, _U32, _INT, _U32, _U32, _P,
+        _P, _P, _INT, _U32, _INT, _U32, _U32, _U32, _P,
     ),
     # (f_eval, halo, halo_len, inv_dens, alphas, program, program_words, shifts_by_4,
     #  geo_a, geo_b, geo_shift, offset, cp_eval, cp_res, batch, len, start, d, p,

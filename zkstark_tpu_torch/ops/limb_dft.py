@@ -166,6 +166,7 @@ def limb_dft_rows_plain(
     post: GeoScale | None = None,
     uv: tuple | None = None,
     scale: int | None = None,
+    period: int | None = None,
 ) -> torch.Tensor:
     """Plain-torch twin of the kernel, same arguments: the same limb
     matrices, recombination and twiddle as whole-tensor ops, a few rows at a
@@ -176,7 +177,7 @@ def limb_dft_rows_plain(
     p = field.p
     w1, w2 = pow(w, k2, p), pow(w, k1, p)
     tw = fp.wide(fp.from_host(_col_twiddle(k1, k2, w, field), x.device))
-    v = ntt_kernel.load_plain(x, m, pre, field)
+    v = ntt_kernel.load_plain(x, m, pre, field, period)
     step = max(1, (1 << 22) // m)
     outs = []
     for r0 in range(0, b, step):
@@ -185,7 +186,7 @@ def limb_dft_rows_plain(
         d = _dft_plain(a.transpose(1, 2), k2, w2, field)  # [s, t]: flat index t + k1·s
         outs.append(d.reshape(-1, m))
     out = torch.cat(outs) if outs else v
-    return ntt_kernel.store_plain(out, post, uv, scale, field)
+    return ntt_kernel.store_plain(out, post, uv, scale, field, period)
 
 
 @functools.lru_cache(maxsize=64)
@@ -211,19 +212,22 @@ def limb_dft_rows(
     post: GeoScale | None = None,
     uv: tuple | None = None,
     scale: int | None = None,
+    period: int | None = None,
 ) -> torch.Tensor:
     """Length-m transform with root w (standard form, exact order m) of every
     row of x (batch, valid ≤ m) uint32, 128 ≤ m ≤ 16384, the tail of each row
     up to m (default: valid) taken as zero; natural order in and out, result
     (batch, m), word for word that of `ntt_kernel.ntt_rows` (whose contract
-    this is: `pre` scales on load, `uv`, `post` and `scale` on store). A CUDA
-    tensor runs the kernel; a CPU tensor runs `limb_dft_rows_plain`."""
+    this is: `pre` scales on load, `uv`, `post` and `scale` on store, row r
+    taking the factors of row r mod `period`). A CUDA tensor runs the kernel;
+    a CPU tensor runs `limb_dft_rows_plain`."""
     global limb_launches
     batch, valid, m = ntt_kernel._check_rows_args(
-        x, m, pre, post, uv, "limb_dft_rows", MIN_LIMB_ROW, MAX_LIMB_ROW
+        x, m, pre, post, uv, "limb_dft_rows", MIN_LIMB_ROW, MAX_LIMB_ROW, period
     )
     if x.device.type == "cpu":
-        return limb_dft_rows_plain(x, w, field, m=m, pre=pre, post=post, uv=uv, scale=scale)
+        return limb_dft_rows_plain(x, w, field, m=m, pre=pre, post=post, uv=uv, scale=scale,
+                                   period=period)
     out = torch.empty((batch, m), dtype=torch.uint32, device=x.device)
     if batch == 0:
         return out
@@ -248,6 +252,7 @@ def limb_dft_rows(
             0 if vt is None else vt.shape[0].bit_length() - 1,
             0 if scale is None else scale,
             0 if scale is None else 1,
+            ntt_kernel._pmask(period),
             field.p,
             field.p_inv_neg,
             _build.stream(x),

@@ -20,9 +20,11 @@ barriers at m = 8192), natural order in and out with no bit-reversed scatter,
     by a scalar (``scale=``: an INTT's 1/n).
 
 `transpose` replaces the transposes XLA fused into the JAX four-step; it reads
-a (rows, cols) matrix whose missing tail is zero and writes (cols, rows). Its
-elements may be blocks of words (``elem=``): the sharded six-step
-(``parallel/ntt_sharded.py``) cuts each row into one contiguous chunk a shard.
+a (rows, cols) matrix whose missing tail is zero and writes (cols, rows), for
+a batch of such matrices in one launch, its output rows in bit-reversed order
+where asked (``brev=``). Its elements may be blocks of words (``elem=``): the
+sharded six-step (``parallel/ntt_sharded.py``) cuts each row into one
+contiguous chunk a shard.
 
 A flat size-n transform (n = n1·n2, n ≥ `MIN_FOURSTEP`) is the four-step
 factorization
@@ -36,6 +38,12 @@ factorization
   4. row-transform with root ω^{n1}, post-scale on store         [kernel B]
   5. transpose back, so the flat result is in natural order      [kernel E]
 
+A batch of B transforms, a (B, ≤ n) input, takes the same 5 launches: the
+transposes take B stacked matrices, and the row kernels B·n2 (B·n1) rows
+whose factors repeat with a period of n2 (n1) rows (``period=``: the factors
+of row r are those of row r mod period), so every transform's rows take the
+same pre-scale, twiddle and post-scale.
+
 On a CUDA tensor every step is a hand-written kernel and every table is on
 the device already (`_device_uv`, `_geo_tables`, `_device_table`, each
 cached). On a CPU tensor each wrapper runs its plain-torch twin, which takes
@@ -44,11 +52,11 @@ the same arguments.
 With ``ZKSTARK_PEASE=on`` (the JAX package's own switch, `pease_enabled`,
 read at every call) both passes run `ntt_rows_pease` instead (CUDA kernel D,
 ``csrc/ntt_pease.cu``): the constant-geometry DIF transform of
-``_ntt_cols_pease_kernel``, natural rows in and bit-reversed rows out, with
-plain-torch glue. The bit-reversals then fall along dim 1; they are undone
-without a strided pass: the columns of U.T and V.T are permuted by br1 (host
-constants), and the transposes of steps 3 and 5 become row gathers of the
-transposed views.
+``_ntt_cols_pease_kernel`` under the contract of `ntt_rows`. Its rows come
+out in the TPU kernel's bit-reversed order (``bitrev=True``), the U.T and V.T
+columns in that order too (`_device_uv`, ``brev``), and the transposes of
+steps 3 and 5 put them back in natural order as they write (``brev=True``):
+the same 5 launches as the DIT route, and no other op.
 
 Past 2^26 points n1 exceeds `MAX_ROW`, and both passes run
 `limb_dft.limb_dft_rows` instead (CUDA kernel H, ``csrc/limb_dft.cu``: the
@@ -173,18 +181,26 @@ def _geo_tables(base: int, size: int, field: Field, device: torch.device):
     return fp.from_host(a, device), fp.from_host(b, device), s
 
 
-def _geo_factor_plain(geo: GeoScale, rows: int, cols: int, field: Field, device):
-    """The plain twin's factor matrix, (rows, cols) or (1, cols) int64."""
+def _geo_factor_plain(geo: GeoScale, rows: int, cols: int, field: Field, device,
+                      period: int | None = None):
+    """The plain twin's factor matrix, (rows, cols) or (1, cols) int64; row
+    r takes the factors of row r mod `period` where given."""
     a, b, s = _geo_tables(geo.base % field.p, geo.size, field, torch.device(device))
     i = torch.arange(cols, dtype=torch.int64, device=device)[None, :]
     r = torch.arange(rows if geo.row_stride else 1, dtype=torch.int64, device=device)[:, None]
+    if period is not None:
+        r = r % period
     e = i * geo.col_stride + r * geo.row_stride
     return fp.mont_mul_w(field, fp.wide(a)[e >> s], fp.wide(b)[e & ((1 << s) - 1)])
 
 
-def _check_rows_args(x, m, pre, post, uv, what="ntt_rows", shortest=2, longest=MAX_ROW):
-    """The checks of the row-transform contract (`ntt_rows`, and
-    `limb_dft.limb_dft_rows` with its own bounds on the row length)."""
+def _check_rows_args(x, m, pre, post, uv, what="ntt_rows", shortest=2, longest=MAX_ROW,
+                     period=None):
+    """The checks of the row-transform contract (`ntt_rows`, `ntt_rows_pease`,
+    and `limb_dft.limb_dft_rows` with its own bounds on the row length).
+    `period` (a power of two dividing the batch) is the rows of one
+    transform, whose factors every further period of rows repeats; by
+    default, all rows."""
     _build.require(x, what, 2)
     batch, valid = x.shape
     m = valid if m is None else m
@@ -194,13 +210,16 @@ def _check_rows_args(x, m, pre, post, uv, what="ntt_rows", shortest=2, longest=M
         )
     if valid < 1 or valid > m:
         raise ValueError(f"{what}: rows of {valid} words do not fit a length-{m} transform")
+    if period is not None and (period < 1 or period & (period - 1) or batch % period):
+        raise ValueError(f"{what}: a period of {period} rows does not divide {batch} rows")
+    rows = batch if period is None else period
     for geo in (pre, post):
         if geo is None:
             continue
         size = geo.size
-        last = (m - 1) * geo.col_stride + (batch - 1) * geo.row_stride
-        if size < 1 or size & (size - 1) or size > 1 << 31 or (batch and last >= size):
-            raise ValueError(f"{what}: {geo} does not cover a ({batch}, {m}) block")
+        last = (m - 1) * geo.col_stride + (rows - 1) * geo.row_stride
+        if size < 1 or size & (size - 1) or size > 1 << 31 or (rows and last >= size):
+            raise ValueError(f"{what}: {geo} does not cover a ({rows}, {m}) block")
     if uv is not None:
         ut, vt = uv
         for t in (ut, vt):
@@ -208,40 +227,59 @@ def _check_rows_args(x, m, pre, post, uv, what="ntt_rows", shortest=2, longest=M
             if t.device != x.device or t.shape[1] != m:
                 raise ValueError(f"{what}: twiddle tables must be (·, m) on the input's device")
         vblk = vt.shape[0]
-        if vblk < 1 or vblk & (vblk - 1) or ut.shape[0] * vblk != batch:
+        if vblk < 1 or vblk & (vblk - 1) or ut.shape[0] * vblk != rows:
             raise ValueError(
                 f"{what}: twiddle tables {tuple(ut.shape)}, {tuple(vt.shape)} do not "
-                f"cover {batch} rows"
+                f"cover {rows} rows"
             )
     return batch, valid, m
 
 
-def load_plain(x: torch.Tensor, m: int, pre: GeoScale | None, field: Field) -> torch.Tensor:
+def _pmask(period: int | None) -> int:
+    """The kernels' row mask: the factors of row r are those of r & mask."""
+    return 0xFFFFFFFF if period is None else period - 1
+
+
+def load_plain(x: torch.Tensor, m: int, pre: GeoScale | None, field: Field,
+               period: int | None = None) -> torch.Tensor:
     """What a row kernel does on load, as whole-tensor ops: the pre-scale
     and the zero tail. x (batch, valid) uint32 → (batch, m) int64."""
     b, valid = x.shape
     v = fp.wide(x)
     if pre is not None:
-        v = fp.mont_mul_w(field, v, _geo_factor_plain(pre, b, valid, field, x.device))
+        v = fp.mont_mul_w(field, v, _geo_factor_plain(pre, b, valid, field, x.device, period))
     if valid < m:
         v = torch.cat([v, torch.zeros((b, m - valid), dtype=torch.int64, device=x.device)], dim=1)
     return v
 
 
-def store_plain(v: torch.Tensor, post: GeoScale | None, uv, scale, field: Field) -> torch.Tensor:
-    """What a row kernel does on store: the U·V twiddle, the post-scale and
-    the scalar. v (batch, m) int64 → uint32."""
+def _twiddle_plain(v: torch.Tensor, uv, field: Field) -> torch.Tensor:
+    """v (batch, m) int64 times the four-step twiddle U.T[r' // vblk, i]·
+    V.T[r' % vblk, i], r' the row within its period (U.T's rows times vblk)."""
+    uw, vw = fp.wide(uv[0]), fp.wide(uv[1])
+    v4 = v.reshape(-1, uw.shape[0], vw.shape[0], v.shape[1])
+    v4 = fp.mont_mul_w(field, fp.mont_mul_w(field, v4, uw[None, :, None, :]), vw[None, None])
+    return v4.reshape(v.shape)
+
+
+def _scale_plain(v: torch.Tensor, post: GeoScale | None, scale, field: Field,
+                 period: int | None = None) -> torch.Tensor:
+    """v (batch, m) int64 times the post-scale and the scalar."""
     b, m = v.shape
-    if uv is not None:
-        uw, vw = fp.wide(uv[0]), fp.wide(uv[1])
-        v3 = v.reshape(uw.shape[0], vw.shape[0], m)
-        v3 = fp.mont_mul_w(field, fp.mont_mul_w(field, v3, uw[:, None, :]), vw[None])
-        v = v3.reshape(b, m)
     if post is not None:
-        v = fp.mont_mul_w(field, v, _geo_factor_plain(post, b, m, field, v.device))
+        v = fp.mont_mul_w(field, v, _geo_factor_plain(post, b, m, field, v.device, period))
     if scale is not None:
         v = fp.mont_mul_w(field, v, scale)
-    return fp.narrow(v)
+    return v
+
+
+def store_plain(v: torch.Tensor, post: GeoScale | None, uv, scale, field: Field,
+                period: int | None = None) -> torch.Tensor:
+    """What a row kernel does on store: the U·V twiddle, the post-scale and
+    the scalar. v (batch, m) int64 → uint32."""
+    if uv is not None:
+        v = _twiddle_plain(v, uv, field)
+    return fp.narrow(_scale_plain(v, post, scale, field, period))
 
 
 def ntt_rows_plain(
@@ -254,13 +292,14 @@ def ntt_rows_plain(
     post: GeoScale | None = None,
     uv: tuple | None = None,
     scale: int | None = None,
+    period: int | None = None,
 ) -> torch.Tensor:
     """Plain-torch twin of the kernel, same arguments: the scales and the
     zero tail as whole-tensor ops around a bit-reversal gather and the
     radix-2 DIT stages."""
     b, valid = x.shape
     m = valid if m is None else m
-    v = load_plain(x, m, pre, field)
+    v = load_plain(x, m, pre, field, period)
     br = torch.from_numpy(bit_reverse_indices(m).astype(np.int64)).to(x.device)
     v = v[:, br]
     tw_w = torch.from_numpy(stage_twiddles(m, w, field).astype(np.int64)).to(x.device)
@@ -272,7 +311,7 @@ def ntt_rows_plain(
         v = torch.cat([fp.add_w(field, e, o), fp.sub_w(field, e, o)], dim=-1)
         v = v.reshape(b, m)
         half *= 2
-    return store_plain(v, post, uv, scale, field)
+    return store_plain(v, post, uv, scale, field, period)
 
 
 def _geo_args(geo: GeoScale | None, field: Field, device) -> tuple:
@@ -294,17 +333,20 @@ def ntt_rows(
     post: GeoScale | None = None,
     uv: tuple | None = None,
     scale: int | None = None,
+    period: int | None = None,
 ) -> torch.Tensor:
     """Length-m transform with root w (standard form, exact order m) of every
     row of x (batch, valid ≤ m) uint32, the tail of each row up to m (default:
     valid) taken as zero; natural order in and out, result (batch, m).
     `pre` scales on load, `uv` (the device tables U.T, V.T), `post` and
-    `scale` (a Montgomery scalar) on store. A CUDA tensor runs the kernel; a
-    CPU tensor runs `ntt_rows_plain`."""
+    `scale` (a Montgomery scalar) on store; with `period`, row r takes the
+    factors of row r mod period. A CUDA tensor runs the kernel; a CPU tensor
+    runs `ntt_rows_plain`."""
     global ntt_launches
-    batch, valid, m = _check_rows_args(x, m, pre, post, uv)
+    batch, valid, m = _check_rows_args(x, m, pre, post, uv, period=period)
     if x.device.type == "cpu":
-        return ntt_rows_plain(x, w, field, m=m, pre=pre, post=post, uv=uv, scale=scale)
+        return ntt_rows_plain(x, w, field, m=m, pre=pre, post=post, uv=uv, scale=scale,
+                              period=period)
     out = torch.empty((batch, m), dtype=torch.uint32, device=x.device)
     if batch == 0:
         return out
@@ -326,6 +368,7 @@ def ntt_rows(
             0 if vt is None else vt.shape[0].bit_length() - 1,
             0 if scale is None else scale,
             0 if scale is None else 1,
+            _pmask(period),
             field.p,
             field.p_inv_neg,
             _build.stream(x),
@@ -335,35 +378,56 @@ def ntt_rows(
     return out
 
 
-def transpose_plain(x: torch.Tensor, rows: int, cols: int, elem: int = 1) -> torch.Tensor:
-    """Plain-torch twin of `transpose`: zero-pad, view, ``.transpose(0, 1)``."""
-    flat = fp.as_i32(x)
-    if flat.shape[0] < rows * cols * elem:
-        pad = torch.zeros(rows * cols * elem - flat.shape[0], dtype=torch.int32, device=x.device)
-        flat = torch.cat([flat, pad])
-    out = flat.reshape(rows, cols, elem).transpose(0, 1).contiguous()
-    return fp.as_u32(out.reshape(cols, rows * elem))
+def transpose_plain(
+    x: torch.Tensor, rows: int, cols: int, elem: int = 1, *, brev: bool = False
+) -> torch.Tensor:
+    """Plain-torch twin of `transpose`: zero-pad each matrix, view,
+    ``.transpose(1, 2)``, and with `brev` a gather of the output rows."""
+    batch = 1 if x.dim() == 1 else x.shape[0]
+    flat = fp.as_i32(x).reshape(batch, x.shape[-1])
+    per = rows * cols * elem
+    if flat.shape[1] < per:
+        pad = torch.zeros((batch, per - flat.shape[1]), dtype=torch.int32, device=x.device)
+        flat = torch.cat([flat, pad], dim=1)
+    out = flat.reshape(batch, rows, cols, elem).transpose(1, 2)
+    if brev:
+        out = out[:, torch.from_numpy(bit_reverse_indices(cols).astype(np.int64)).to(x.device)]
+    return fp.as_u32(out.contiguous().reshape(batch * cols, rows * elem))
 
 
-def transpose(x: torch.Tensor, rows: int, cols: int, elem: int = 1) -> torch.Tensor:
+def transpose(
+    x: torch.Tensor, rows: int, cols: int, elem: int = 1, *, brev: bool = False
+) -> torch.Tensor:
     """The (cols, rows) transpose of the row-major (rows, cols) matrix whose
-    first words are the flat uint32 vector x and whose missing tail is zero.
+    first words are the flat uint32 vector x and whose missing tail is zero;
+    for a (batch, valid) x, of each of its rows, stacked: (batch·cols, rows).
     With `elem` > 1 (a power of two, and rows one too) an element is a block
     of `elem` consecutive words: (rows, cols, elem) → (cols, rows, elem),
-    returned as (cols, rows·elem). A CUDA tensor runs the kernel; a CPU tensor
-    runs `transpose_plain`."""
+    returned as (batch·cols, rows·elem). With `brev` (elem 1, cols a power of
+    two) output row c is input column brev(c). A CUDA tensor runs the kernel;
+    a CPU tensor runs `transpose_plain`."""
     global transpose_launches
-    _build.require(x, "transpose", 1)
-    if rows < 1 or cols < 1 or x.shape[0] > rows * cols * elem or rows > 65535 * 32:
-        raise ValueError(f"transpose: {x.shape[0]} words do not fit a ({rows}, {cols}) matrix")
+    if x.dim() not in (1, 2):
+        raise ValueError(f"transpose: needs a flat vector or a batch of them, got {tuple(x.shape)}")
+    _build.require(x, "transpose", x.dim())
+    batch, valid = (1, x.shape[0]) if x.dim() == 1 else x.shape
+    if rows < 1 or cols < 1 or valid > rows * cols * elem or rows > 65535 * 32:
+        raise ValueError(f"transpose: {valid} words do not fit a ({rows}, {cols}) matrix")
     if elem < 1 or elem & (elem - 1) or (elem > 1 and rows & (rows - 1)):
         raise ValueError(f"transpose: blocks of {elem} words need powers of two (rows {rows})")
+    if brev and (elem > 1 or cols & (cols - 1)):
+        raise ValueError(f"transpose: bit-reversed rows need words and a power of two (cols {cols})")
+    if elem == 1 and batch > 65535:
+        raise ValueError(f"transpose: {batch} matrices in one launch, at most 65535")
     if x.device.type == "cpu":
-        return transpose_plain(x, rows, cols, elem)
-    out = torch.empty((cols, rows * elem), dtype=torch.uint32, device=x.device)
+        return transpose_plain(x, rows, cols, elem, brev=brev)
+    out = torch.empty((batch * cols, rows * elem), dtype=torch.uint32, device=x.device)
+    if batch == 0:
+        return out
     with torch.cuda.device(x.device):
         rc = _build.kernels().zk_transpose(
-            x.data_ptr(), out.data_ptr(), rows, cols, elem, x.shape[0], _build.stream(x)
+            x.data_ptr(), out.data_ptr(), rows, cols, elem, valid, batch, int(brev),
+            _build.stream(x),
         )
     _build.check(rc, "transpose")
     transpose_launches += 1
@@ -378,17 +442,16 @@ def pease_twiddles(m: int, w: int, field: Field = FIELD101) -> np.ndarray:
     return field.host_to_mont(field.host_powers_pow2(w, m // 2))
 
 
-def ntt_rows_pease_plain(x: torch.Tensor, tw: np.ndarray, field: Field = FIELD101):
-    """Plain-torch twin of the Pease kernel: log2(m) identical stages
-    a = T + B, b = W_t·(T − B), x' = interleave(a, b) over whole rows (no
-    multiply in the last stage, whose twiddles are all w^0). x (batch, m)
-    uint32; natural order in, bit-reversed order out."""
-    b, m = x.shape
+def _pease_stages(v: torch.Tensor, w: int, field: Field) -> torch.Tensor:
+    """The Pease transform of the rows of v (batch, m) int64: log2(m)
+    identical stages a = T + B, b = W_t·(T − B), x' = interleave(a, b) (no
+    multiply in the last stage, whose twiddles are all w^0); natural order
+    in, bit-reversed order out."""
+    b, m = v.shape
     h = m // 2
     stages = m.bit_length() - 1
-    i = torch.arange(h, device=x.device)
-    tw_w = torch.from_numpy(tw.astype(np.int64)).to(x.device)
-    v = fp.wide(x)
+    i = torch.arange(h, device=v.device)
+    tw_w = torch.from_numpy(pease_twiddles(m, w, field).astype(np.int64)).to(v.device)
     for t in range(stages):
         top, bot = v[:, :h], v[:, h:]
         a = fp.add_w(field, top, bot)
@@ -396,24 +459,67 @@ def ntt_rows_pease_plain(x: torch.Tensor, tw: np.ndarray, field: Field = FIELD10
         if t < stages - 1:
             d = fp.mont_mul_w(field, d, tw_w[(i >> t) << t])
         v = torch.stack([a, d], dim=-1).reshape(b, m)
+    return v
+
+
+def ntt_rows_pease_plain(
+    x: torch.Tensor,
+    w: int,
+    field: Field = FIELD101,
+    *,
+    m: int | None = None,
+    pre: GeoScale | None = None,
+    post: GeoScale | None = None,
+    uv: tuple | None = None,
+    scale: int | None = None,
+    period: int | None = None,
+    bitrev: bool = False,
+) -> torch.Tensor:
+    """Plain-torch twin of the Pease kernel, same arguments: the load of
+    `ntt_rows_plain`, the Pease stages, then in natural order the post-scale
+    (at the frequency) and the scalar; with `bitrev`, the columns permuted by
+    bit reversal; last the U·V twiddle, by the column as stored."""
+    b, valid = x.shape
+    m = valid if m is None else m
+    v = _pease_stages(load_plain(x, m, pre, field, period), w, field)
+    br = torch.from_numpy(bit_reverse_indices(m).astype(np.int64)).to(x.device)
+    v = _scale_plain(v[:, br], post, scale, field, period)  # natural order
+    if bitrev:
+        v = v[:, br]
+    if uv is not None:
+        v = _twiddle_plain(v, uv, field)
     return fp.narrow(v)
 
 
-def ntt_rows_pease(x: torch.Tensor, w: int, field: Field = FIELD101) -> torch.Tensor:
-    """Length-m transform with root w of every row of x (batch, m) uint32:
-    natural order in, BIT-REVERSED order out. A CUDA tensor runs the Pease
-    kernel; a CPU tensor runs `ntt_rows_pease_plain`."""
+def ntt_rows_pease(
+    x: torch.Tensor,
+    w: int,
+    field: Field = FIELD101,
+    *,
+    m: int | None = None,
+    pre: GeoScale | None = None,
+    post: GeoScale | None = None,
+    uv: tuple | None = None,
+    scale: int | None = None,
+    period: int | None = None,
+    bitrev: bool = False,
+) -> torch.Tensor:
+    """`ntt_rows` (same arguments, same result) on the Pease kernel; with
+    `bitrev` the result's columns come in bit-reversed order (column i holds
+    frequency brev(i), the order of the TPU kernel), the post-scale still
+    taken at the frequency and the U·V tables read by the column as stored
+    (hand them over with their columns permuted, `_device_uv`). A CUDA tensor
+    runs the Pease kernel; a CPU tensor runs `ntt_rows_pease_plain`."""
     global pease_launches
-    _build.require(x, "ntt_rows_pease", 2)
-    batch, m = x.shape
-    if m < 2 or m > MAX_ROW or m & (m - 1):
-        raise ValueError(f"ntt_rows_pease: row length {m} is not a power of two in [2, {MAX_ROW}]")
+    batch, valid, m = _check_rows_args(x, m, pre, post, uv, "ntt_rows_pease", period=period)
     if x.device.type == "cpu":
-        return ntt_rows_pease_plain(x, pease_twiddles(m, w, field), field)
-    out = torch.empty_like(x)
+        return ntt_rows_pease_plain(x, w, field, m=m, pre=pre, post=post, uv=uv, scale=scale,
+                                    period=period, bitrev=bitrev)
+    out = torch.empty((batch, m), dtype=torch.uint32, device=x.device)
     if batch == 0:
         return out
     tw_d = _device_table(pease_twiddles, m, w, field, x.device)
+    ut, vt = uv if uv is not None else (None, None)
     with torch.cuda.device(x.device):
         rc = _build.kernels().zk_ntt_rows_pease(
             x.data_ptr(),
@@ -421,6 +527,16 @@ def ntt_rows_pease(x: torch.Tensor, w: int, field: Field = FIELD101) -> torch.Te
             tw_d.data_ptr(),
             m.bit_length() - 1,
             batch,
+            valid,
+            *_geo_args(pre, field, x.device),
+            *_geo_args(post, field, x.device),
+            None if ut is None else ut.data_ptr(),
+            None if vt is None else vt.data_ptr(),
+            0 if vt is None else vt.shape[0].bit_length() - 1,
+            0 if scale is None else scale,
+            0 if scale is None else 1,
+            _pmask(period),
+            int(bitrev),
             field.p,
             field.p_inv_neg,
             _build.stream(x),
@@ -428,16 +544,6 @@ def ntt_rows_pease(x: torch.Tensor, w: int, field: Field = FIELD101) -> torch.Te
     _build.check(rc, "ntt_rows_pease")
     pease_launches += 1
     return out
-
-
-def _transpose(x: torch.Tensor) -> torch.Tensor:
-    return fp.as_u32(fp.as_i32(x).t().contiguous())
-
-
-def _transpose_gather(x: torch.Tensor, br: np.ndarray) -> torch.Tensor:
-    """Rows br of x.T (x's columns in the order br), in one gather pass."""
-    idx = torch.from_numpy(br.astype(np.int64)).to(x.device)
-    return fp.as_u32(fp.as_i32(x).t().index_select(0, idx))
 
 
 @functools.lru_cache(maxsize=None)
@@ -454,18 +560,6 @@ def _fourstep_constants(
     n1, n2 = split(n)
     u, v = _twiddle_uv_host(n1, n2, w, inverse_scale, field)
     return n1, n2, np.ascontiguousarray(u.T), np.ascontiguousarray(v.T)
-
-
-@functools.lru_cache(maxsize=None)
-def _pease_fourstep_constants(
-    n: int, w: int, inverse_scale: int | None, field: Field = FIELD101
-):
-    """The Pease route's constants: `_fourstep_constants` with the columns
-    of U.T and V.T permuted by br1 (pass 1 leaves k1 bit-reversed along
-    dim 1), and the row orders br1, br2 that undo each pass."""
-    n1, n2, ut, vt = _fourstep_constants(n, w, inverse_scale, field)
-    br1, br2 = bit_reverse_indices(n1), bit_reverse_indices(n2)
-    return n1, n2, np.ascontiguousarray(ut[:, br1]), np.ascontiguousarray(vt[:, br1]), br1, br2
 
 
 def _twiddle_uv_host(
@@ -486,44 +580,19 @@ def _twiddle_uv_host(
     return field.host_to_mont(u.astype(np.uint32)), field.host_to_mont(v)
 
 
-def _apply_twiddle_t(at: torch.Tensor, ut, vt, field: Field = FIELD101):
-    """The Pease route's twiddle in plain torch: at[j2, k1]·w^{k1·j2} on the
-    transposed (n2, n1) layout, with j2 = vblk·jh + jl: times U.T[jh, k1],
-    then V.T[jl, k1]."""
-    n2, n1 = at.shape
-    vblk = vt.shape[0]
-    a3 = fp.wide(at).reshape(n2 // vblk, vblk, n1)
-    uw = fp.wide(fp.from_host(ut, at.device))
-    vw = fp.wide(fp.from_host(vt, at.device))
-    out = fp.mont_mul_w(field, fp.mont_mul_w(field, a3, uw[:, None, :]), vw[None])
-    return fp.narrow(out).reshape(n2, n1)
-
-
 @functools.lru_cache(maxsize=64)
-def _device_uv(n: int, w: int, inverse_scale: int | None, field: Field, device: torch.device):
+def _device_uv(
+    n: int, w: int, inverse_scale: int | None, field: Field, device: torch.device,
+    brev: bool = False,
+):
     """(n1, n2, U.T, V.T) of `_fourstep_constants` with the tables on
-    `device`, uploaded once."""
+    `device`, uploaded once; with `brev` their columns in bit-reversed order,
+    the order in which ``ntt_rows_pease(bitrev=True)`` stores its columns."""
     n1, n2, ut, vt = _fourstep_constants(n, w, inverse_scale, field)
+    if brev:
+        br = bit_reverse_indices(n1)
+        ut, vt = np.ascontiguousarray(ut[:, br]), np.ascontiguousarray(vt[:, br])
     return n1, n2, fp.from_host(ut, device), fp.from_host(vt, device)
-
-
-def _fourstep_pease(x, n: int, w: int, inverse_scale, field: Field, pre, post):
-    """The Pease route, with plain-torch glue around `ntt_rows_pease`."""
-    p = field.p
-    if x.shape[0] < n:
-        x = fp.as_u32(torch.cat([fp.as_i32(x), fp.as_i32(fp.zeros(n - x.shape[0], x.device))]))
-    if pre is not None:
-        x = fp.mont_mul_f(field, x, fp.narrow(_geo_factor_plain(pre, 1, n, field, x.device)[0]))
-    n1, n2, ut, vt, br1, br2 = _pease_fourstep_constants(n, w, inverse_scale, field)
-    at = _transpose(x.reshape(n1, n2))  # row j2: x[j1·n2 + j2] over j1
-    at = ntt_rows_pease(at, pow(w, n2, p), field)  # [j2, br1(k1)]
-    tw = _apply_twiddle_t(at, ut, vt, field)  # U.T, V.T columns in br1 order
-    b = _transpose_gather(tw, br1)  # (n1, n2): [k1, j2]
-    d = ntt_rows_pease(b, pow(w, n1, p), field)  # [k1, br2(k2)]
-    out = _transpose_gather(d, br2).reshape(n)  # X[k1 + n1·k2]
-    if post is not None:
-        out = fp.mont_mul_f(field, out, fp.narrow(_geo_factor_plain(post, 1, n, field, x.device)[0]))
-    return out
 
 
 def split(n: int) -> tuple[int, int]:
@@ -558,21 +627,26 @@ def ntt_fourstep(
 ) -> torch.Tensor:
     """Size-n transform with root w (standard form) of the flat Montgomery
     vector x of at most n words (the tail up to n taken as zero), natural
-    order in and out. With inverse_scale (Montgomery n^{-1}) it is a complete
-    INTT. Input j is first multiplied by pre_offset^j and output k last by
-    post_offset^k (standard-form residues), where given.
+    order in and out; or of each row of a (B, ≤ n) batch x, in the same five
+    launches, giving (B, n). With inverse_scale (Montgomery n^{-1}) it is a
+    complete INTT. Input j is first multiplied by pre_offset^j and output k
+    last by post_offset^k (standard-form residues), where given.
 
     The route is read at each call, by the rule of the JAX package: both
     passes run `limb_dft.limb_dft_rows` when ``ZKSTARK_MXU=on`` or n1 exceeds
     `MAX_ROW` (n > 2^26), provided both factors are within its range; else
-    `ntt_rows_pease` under ``ZKSTARK_PEASE=on``; else `ntt_rows`.
-    `limb_dft_rows` and `ntt_rows` share one contract, so the glue below is
-    the same for both."""
+    `ntt_rows_pease` under ``ZKSTARK_PEASE=on``; else `ntt_rows`. The three
+    share one contract, so the glue below is the same for all; the Pease
+    rows stay in bit-reversed column order, which the transposes after them
+    undo."""
     from zkstark_tpu_torch.ops import limb_dft
 
-    _build.require(x, "ntt_fourstep", 1)
-    if x.shape[0] > n:
-        raise ValueError(f"ntt_fourstep: {x.shape[0]} words do not fit a size-{n} transform")
+    if x.dim() not in (1, 2):
+        raise ValueError(f"ntt_fourstep: needs a flat vector or a batch of them, got {tuple(x.shape)}")
+    _build.require(x, "ntt_fourstep", x.dim())
+    k = x.shape[-1]
+    if k > n:
+        raise ValueError(f"ntt_fourstep: {k} words do not fit a size-{n} transform")
     n1, n2 = split(n)
     limbs_fit = limb_dft.mxu_supported(n1) and limb_dft.mxu_supported(n2)
     if n1 > MAX_ROW and not limbs_fit:
@@ -581,20 +655,25 @@ def ntt_fourstep(
             f"the largest supported size is 2^{MAX_FOURSTEP.bit_length() - 1}"
         )
     p = field.p
-    pre = None if pre_offset is None else GeoScale(pre_offset, n)
-    post = None if post_offset is None else GeoScale(post_offset, n)
     limbs = (limb_dft.mxu_enabled() or n1 > MAX_ROW) and limbs_fit
-    if pease_enabled() and not limbs:
-        return _fourstep_pease(x, n, w, inverse_scale, field, pre, post)
-    rows = limb_dft.limb_dft_rows if limbs else ntt_rows
-    n1, n2, ut, vt = _device_uv(n, w, inverse_scale, field, x.device)
-    if pre is not None:  # element (row j2, column j1) is input j1·n2 + j2
-        pre = GeoScale(pre_offset, n, col_stride=n2, row_stride=1)
-    if post is not None:  # element (row k1, column k2) is output k1 + n1·k2
-        post = GeoScale(post_offset, n, col_stride=n1, row_stride=1)
-    filled = -(-x.shape[0] // n2)  # rows of the (n1, n2) view that hold input
-    at = transpose(x, filled, n2)  # row j2: x[j1·n2 + j2] over j1 < filled
-    at = rows(at, pow(w, n2, p), field, m=n1, pre=pre, uv=(ut, vt))  # [j2, k1]·ω^{k1·j2}
-    b = transpose(at.reshape(n), n2, n1)  # (n1, n2): [k1, j2]
-    d = rows(b, pow(w, n1, p), field, post=post)  # [k1, k2]
-    return transpose(d.reshape(n), n1, n2).reshape(n)  # X[k1 + n1·k2]
+    pease = pease_enabled() and not limbs
+    rows = limb_dft.limb_dft_rows if limbs else ntt_rows_pease if pease else ntt_rows
+    order = dict(bitrev=True) if pease else {}  # the Pease rows stay bit-reversed
+    batch = 1 if x.dim() == 1 else x.shape[0]
+    if batch == 0:
+        return torch.empty((0, n), dtype=torch.uint32, device=x.device)
+    n1, n2, ut, vt = _device_uv(n, w, inverse_scale, field, x.device, pease)
+    # element (row j2, column j1) is input j1·n2 + j2
+    pre = None if pre_offset is None else GeoScale(pre_offset, n, col_stride=n2, row_stride=1)
+    # element (row k1, column k2) is output k1 + n1·k2
+    post = None if post_offset is None else GeoScale(post_offset, n, col_stride=n1, row_stride=1)
+    filled = -(-k // n2)  # rows of each (n1, n2) view that hold input
+    at = transpose(x.reshape(batch, k), filled, n2)  # row j2: x[j1·n2 + j2] over j1 < filled
+    at = rows(at, pow(w, n2, p), field, m=n1, pre=pre, uv=(ut, vt), period=n2,
+              **order)  # [j2, k1]·ω^{k1·j2}
+    b = transpose(at.reshape(batch, n), n2, n1, brev=pease)  # (n1, n2) each: [k1, j2]
+    del at
+    d = rows(b, pow(w, n1, p), field, post=post, period=n1, **order)  # [k1, k2]
+    del b
+    out = transpose(d.reshape(batch, n), n1, n2, brev=pease)  # X[k1 + n1·k2]
+    return out.reshape(x.shape[:-1] + (n,))

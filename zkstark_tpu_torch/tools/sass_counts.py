@@ -11,8 +11,9 @@ as the whole kernel's; the NTT row kernel shows its count per radix-8 task as
 the loop with 8 ``LDS`` and 8 ``STS`` (12 butterflies). The Pease kernel is
 unrolled over its passes: an instance's whole count is one thread's, which
 runs m/4 / threads radix-4 tasks (4 butterflies each) in each of log2(m)/2
-passes (``ntt_rows_pease_kernel<12>``: 512 threads, 2 tasks × 6 passes, 48
-butterflies). The FRI fold's vector instance (``fri_fold_kernel<1>``) counts
+passes (``ntt_rows_pease_kernel<12,1>``, bit-reversed order out: 512
+threads, 2 tasks × 6 passes, 48 butterflies; ``<12,0>``, natural order out,
+adds its store loop). The FRI fold's vector instance (``fri_fold_kernel<1>``) counts
 four outputs, the chain kernel one boundary with its draw loop. ``--dump
 DIR`` also writes each kernel's SASS to ``DIR/<kernel>.sass``.
 """
