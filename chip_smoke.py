@@ -38,7 +38,11 @@ Phases, one output line (or a few) each:
      `endpoint_fix` (the INTT sizes 2^21, 2^10, 2^25, and B = 32 at 2^10),
      `constants` (2^24 square-chain and fibonacci-sq, stark-101) and
      `openings` (stark-101 at B = 1 and 32, one 2^24 proof, shard 3 of 8
-     at 2^24), each with its device time under torch.profiler;
+     at 2^24), each with its device time under torch.profiler; the launch
+     floor (the profiled device time of an empty kernel launched through
+     `_build`) with `openings`' share of it, and the batched transposes of
+     16 x (128 x 1024) and 16 x (1024 x 1024) as profiled device time beside
+     `.t().contiguous()`'s;
   4. stark-101 proved on the card: the golden 7,836-byte transcript and
      final state, accepted by the port's verifier and the C++ verifier, every
      kernel launched, the Merkle trees in at most 20 node and tail launches;
@@ -97,7 +101,19 @@ Phases, one output line (or a few) each:
      their twins, and times `fri_fold` on the device at 2^24 and 2^21;
  14. ``tools.scaling_bench`` at 2^24 points over local meshes of 1, 2, 4 and
      8 shards, two warm repeats each, the same roots at every S;
- 15. the wall time, the kernel JSON line, then the result line.
+ 15. (run right after phase 3) the hash kernels on the TPU kernels' word-plane
+     layout: `sha256_leaf` and `sha256_node` as plane-major instances against
+     their plain twins and the row-major digests transposed, the A/B of both
+     layouts in turns (row, planes, planes, row) with 50-call CUDA-event
+     windows and profiled device times at 2^20 leaves and 2^19 parents, and a
+     2^24-leaf tree through `build_levels` with and without the plane-major
+     chain, every level equal, in turns; the chain's tree is the run whose
+     plane-major launches are counted;
+ 16. (run after phase 13) the process-group mesh on NCCL: a spawned process
+     starts a group of one on the card and proves stark-101 (one shard) and
+     the 2^21 statement (two shards in the process) through it, each equal
+     to its solo proof (7,836 B golden, 17,612 B);
+ 17. the wall time, the kernel JSON line, then the result line.
 
 Every phase that proves checks the launch counters of its own route.
 
@@ -188,7 +204,12 @@ SRC = {
     "endpoint_fix": ("zkstark_tpu_torch/csrc/endpoint_fix.cu", "zkstark_tpu/protocol/air.py:423"),
     "from_mont": ("zkstark_tpu_torch/csrc/from_mont.cu", "zkstark_tpu/parallel/pipeline.py:64"),
     "constants": ("zkstark_tpu_torch/csrc/constants.cu", "zkstark_tpu/protocol/prover.py:53"),
+    "sha256_leaf_planes": ("zkstark_tpu_torch/csrc/sha256.cu", "zkstark_tpu/ops/sha256_kernel.py:105"),
+    "sha256_node_planes": ("zkstark_tpu_torch/csrc/sha256.cu", "zkstark_tpu/ops/sha256_kernel.py:139"),
 }
+# the hash kernels on the word-plane layout, driven by `build_levels` with its
+# plane-major chain (phase 15)
+PLANE_KERNELS = ("sha256_leaf_planes", "sha256_node_planes")
 # the kernels of the fused core's former plain-torch glue, driven by the main
 # path: `prove(STARK101)` (phase 9), which builds its composition constants cold
 GLUE_KERNELS = ("openings", "endpoint_fix", "from_mont", "constants")
@@ -386,6 +407,15 @@ def phase2_fp():
                 raise AssertionError(f"fp.cuh wrong at a={x} b={y} p={p}")
             checked += 1
         say(f"phase2 fp.cuh p={p} pairs={n} exact_checked={checked} ok")
+    # the field module's device functions (plain torch on the card, no kernel
+    # of their own: the JAX package's are jnp) at the size of the 2^20 domain
+    base = fp.subgroup_generator(1 << 20)
+    for name, fn in (("device_powers", lambda dev: fp.device_powers(base, 1 << 20, device=dev)),
+                     ("powers_iota", lambda dev: fp.powers_iota(base, 1 << 20, 7, device=dev))):
+        if max_abs_err(fn("cuda").cpu(), fn("cpu")):
+            raise AssertionError(f"fp.{name} on the card differs from the CPU")
+        say(f"phase2 field {name} n=2^20 ==cpu ms={cuda_ms(lambda: fn('cuda'), 10):.4f} "
+            f"(plain torch launches, no kernel of its own)")
 
 
 def _compare(name: str, label: str, kernel, plain, limit: dict, iters=20, library=None) -> dict:
@@ -531,6 +561,7 @@ def phase3_kernels() -> dict:
     rows.update(phase3_serial_kernels(rows["fs_chain"]))
     rows.update(phase3_limb_and_composition())
     rows.update(phase3_glue_kernels())
+    rows["openings"].update(phase3_launch_floor(rows["openings"]))
     phase3_shard_contracts()
     phase3_lde()
     return rows
@@ -2161,6 +2192,209 @@ def phase14_scaling_bench() -> list:
     return records
 
 
+def phase3_launch_floor(openings_row: dict) -> dict:
+    """The two rows whose numbers timed the host: the device time of an
+    empty kernel launched through `_build` (the launch floor, the mean of
+    50 profiled launches), `openings`' device time against it, and the small
+    batched transposes as profiled device time beside `.t().contiguous()`'s.
+    Returns the floor's numbers."""
+    from zkstark_tpu_torch.field import fp
+    from zkstark_tpu_torch.ops import _build, ntt_kernel
+
+    lib = _build.kernels()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def empty():
+        _build.check(lib.zk_empty(stream), "empty_kernel")
+
+    floor_ms = device_ms(empty, "empty_kernel", 50)
+    say(f"phase3 launch floor: empty_kernel device_ms={floor_ms:.5f} (mean of 50 profiled launches)")
+    say(f"phase3 openings stark-101 device_ms={openings_row['ms']:.5f} against the launch floor "
+        f"{floor_ms:.5f}: share={floor_ms / openings_row['ms']:.3f}")
+    rng = np.random.default_rng(40)
+    for bsz, r_, c_ in ((16, 128, 1024), (16, 1024, 1024)):
+        x = fp.from_host(rng.integers(0, 1 << 32, (bsz, r_ * c_), dtype=np.uint64)
+                         .astype(np.uint32), "cuda")
+        ours = device_ms(lambda: ntt_kernel.transpose(x, r_, c_), "transpose_kernel", 50)
+        lib_ms = device_ms(lambda: fp.as_i32(x).reshape(bsz, r_, c_).transpose(1, 2).contiguous(),
+                           "", 50)
+        limit = bound(8 * bsz * r_ * c_, 0)
+        say(f"phase3 transpose batch={bsz} rows={r_} cols={c_} device_ms={ours:.5f} "
+            f"library .t().contiguous() device_ms={lib_ms:.5f} bound_ms={limit['bound_ms']:.5f} "
+            f"share={limit['bound_ms'] / ours:.3f} library_share={limit['bound_ms'] / lib_ms:.3f}")
+        del x
+    return dict(launch_floor_ms=floor_ms, openings_share_of_floor=floor_ms / openings_row["ms"])
+
+
+def _ab_turns(fns: dict, iters: int) -> dict:
+    """CUDA-event ms of fns["row"] and fns["planes"] in turns (row, planes,
+    planes, row), `iters` calls a window: {"row": [ms, ms], "planes": [...]}."""
+    turns = {"row": [], "planes": []}
+    for which in ("row", "planes", "planes", "row"):
+        turns[which].append(cuda_ms(fns[which], iters))
+    return turns
+
+
+def _turns_text(turns: dict) -> str:
+    return ("A/B in turns row,planes,planes,row ms="
+            + ",".join(f"{ms:.4f}" for ms in (turns["row"][0], *turns["planes"], turns["row"][1])))
+
+
+def phase15_planes() -> tuple:
+    """The hash kernels on the TPU kernels' word-plane layout. Both
+    plane-major kernels against their plain twins and against the row-major
+    kernels' digests transposed (tolerance 0), then the A/B in turns (row,
+    planes, planes, row), each turn a 50-call CUDA-event window, and the
+    profiled device time of each layout: `sha256_leaf` at 2^20 leaves,
+    `sha256_node` at 2^19 parents, beside the row-major rows' bounds; then a
+    tree of 2^24 leaves through `build_levels` on both layouts (the chain:
+    bit-reversed leaves, `node_planes_folded` down to 2^22 parents, every
+    level turned natural row-major), every level equal, in turns. The chain's
+    first tree is the run whose launches are counted. Returns the table's
+    rows of the two plane-major kernels and those launches."""
+    from zkstark_tpu_torch import ops
+    from zkstark_tpu_torch.field import fp
+    from zkstark_tpu_torch.hash import merkle
+    from zkstark_tpu_torch.ops import sha256_kernel as sk
+
+    rng = np.random.default_rng(41)
+
+    def u32(shape):
+        words = rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32)
+        return fp.from_host(words, "cuda")
+
+    def t(a):  # (n, 8) rows <-> (8, n) planes
+        return fp.as_u32(fp.as_i32(a).t().contiguous())
+
+    vals = u32(1 << 20)
+    n = vals.shape[0]
+    planes = sk.leaf_planes(vals)
+    errs = [max_abs_err(planes, sk.leaf_planes_plain(vals)), max_abs_err(planes, t(sk.leaf_hash(vals)))]
+    children = u32((8, 1 << 20))
+    k = children.shape[1] // 2
+    # the same children row-major: left child j then right child j
+    pairs = torch.cat([fp.as_i32(children[:, :k]).t(), fp.as_i32(children[:, k:]).t()], 1)
+    pairs = fp.as_u32(pairs.contiguous().reshape(2 * k, 8))
+    folded = sk.node_planes_folded(children)
+    interleaved = sk.node_planes(children)
+    errs += [max_abs_err(folded, sk.node_planes_folded_plain(children)),
+             max_abs_err(folded, t(sk.node_hash_pairs(pairs))),
+             max_abs_err(interleaved, sk.node_planes_plain(children)),
+             max_abs_err(interleaved, t(sk.node_hash_pairs(t(children))))]
+    if any(errs):
+        raise AssertionError(f"the plane-major kernels differ from their plain twins or the "
+                             f"row-major digests: {errs}")
+    del planes, folded, interleaved
+    cases = (
+        ("sha256_leaf_planes", "n=2^20", "sha256_leaf", bound(4 * n + 32 * n, n * SHA_LEAF),
+         dict(row=lambda: sk.leaf_hash(vals), planes=lambda: sk.leaf_planes(vals)),
+         lambda: sk.leaf_planes_plain(vals)),
+        ("sha256_node_planes", "k=2^19 folded", "sha256_node", bound(64 * k + 32 * k, k * SHA_NODE),
+         dict(row=lambda: sk.node_hash_pairs(pairs), planes=lambda: sk.node_planes_folded(children)),
+         lambda: sk.node_planes_folded_plain(children)),
+    )
+    rows = {}
+    for name, label, kernel, limit, fns, plain in cases:
+        turns = _ab_turns(fns, 50)
+        # each window launches one kernel only: its instance of the template
+        dev = {which: device_ms(fns[which], kernel, 50) for which in fns}
+        plain_ms = cuda_ms(plain, 3)
+        share = {which: limit["bound_ms"] / dev[which] for which in dev}
+        say(f"phase15 {name} {label} max_abs_err=0 tol=0 (plain twin and row-major digests "
+            f"transposed) {_turns_text(turns)} device_ms row={dev['row']:.5f} "
+            f"planes={dev['planes']:.5f} plain_ms={plain_ms:.4f} bound_ms={limit['bound_ms']:.4f} "
+            f"bound_by={limit['bound_by']} share row={share['row']:.3f} planes={share['planes']:.3f}")
+        rows[name] = dict(max_abs_err=0, ms=dev["planes"], plain_ms=plain_ms, library_ms=None,
+                          **limit)
+    del vals, children, pairs
+
+    values = u32(1 << 24)
+    trees = dict(row=lambda: merkle.build_levels(values),
+                 planes=lambda: merkle.build_levels(values, planar_stop=merkle.PLANAR_STOP))
+    ops.reset_launch_counts()
+    chain = trees["planes"]()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    require_launched(launches, (*PLANE_KERNELS, "transpose"), "the plane-major tree")
+    levels = trees["row"]()
+    if len(chain) != len(levels) or any(max_abs_err(a, b) for a, b in zip(chain, levels)):
+        raise AssertionError("the plane-major tree differs from the row-major tree")
+    del chain, levels
+    turns = _ab_turns(trees, 20)
+    busy = {which: _device_busy(trees[which]) for which in trees}
+    say(f"phase15 tree n=2^24 root equal on both layouts, every level equal; {_turns_text(turns)} "
+        f"(20 trees a window) device_busy row={json.dumps(busy['row'])} "
+        f"planes={json.dumps(busy['planes'])} "
+        f"chain launches={json.dumps({k: v for k, v in launches.items() if v})}")
+    del values
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+def _group_of_one_worker(port: int) -> None:
+    """One process of a process group of one on the card (NCCL for CUDA
+    tensors): stark-101 on a mesh of one shard and the 2^21 square-chain
+    statement on two shards in this process, the collectives through the
+    group. Prints one JSON line."""
+    import torch.distributed as dist
+
+    from zkstark_tpu_torch import STARK101, STARK101_SECRET, prove
+    from zkstark_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    dist.init_process_group("cpu:gloo,cuda:nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    if initialize_distributed() != 1:
+        raise AssertionError("initialize_distributed: the group of one is not one")
+    res = dict(backend=dist.get_backend_config())
+    cfg21 = _square_chain_cfg(MID_TRACE_BITS, BIG_SECRET)
+    for label, cfg, secret, shards in (("stark101", STARK101, STARK101_SECRET, 1),
+                                       ("square-chain 2^21", cfg21, BIG_SECRET, 2)):
+        solo = prove(cfg, secret, device="cuda")
+        mesh = make_mesh(shards, device="cuda")
+        if mesh.is_local or mesh.n_processes != 1:
+            raise AssertionError("make_mesh in a group of one: not a process-group mesh")
+        got = prove(cfg, secret, mesh=mesh)
+        t0 = time.perf_counter()
+        again = prove(cfg, secret, mesh=mesh)
+        torch.cuda.synchronize()
+        res[label] = dict(shards=shards, bytes=len(got.data), state=got.state.hex(),
+                          equal_solo=(got.state, got.data) == (solo.state, solo.data),
+                          equal_again=again == got, warm_s=round(time.perf_counter() - t0, 4),
+                          bytes_moved=dict(mesh.bytes_moved))
+    dist.destroy_process_group()
+    print(json.dumps(res), flush=True)
+
+
+def phase16_nccl_group() -> dict:
+    """The process-group mesh on NCCL: a spawned process starts a group of
+    one on the card and proves stark-101 (one shard) and the 2^21 statement
+    (two shards in the process) through it; each proof equals the solo one,
+    7,836 B golden and 17,612 B."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    run = subprocess.run([sys.executable, os.path.abspath(__file__), "--group-of-one", str(port)],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    if run.returncode != 0:
+        raise AssertionError(f"the NCCL group of one failed ({run.returncode}):\n{run.stderr[-4000:]}")
+    res = json.loads(run.stdout.strip().splitlines()[-1])
+    say(f"phase16 NCCL group of one: {json.dumps(res)}")
+    if "cuda:nccl" not in res["backend"]:
+        raise AssertionError(f"the group's backend is {res['backend']}, not NCCL")
+    a, b = res["stark101"], res["square-chain 2^21"]
+    if not (a["equal_solo"] and a["bytes"] == GOLDEN_LEN and a["state"] == GOLDEN_STATE):
+        raise AssertionError("the NCCL group's stark-101 proof is not golden")
+    if not (b["equal_solo"] and b["bytes"] == MID_PROOF_LEN and sum(b["bytes_moved"].values()) > 0):
+        raise AssertionError("the NCCL group's 2^21 proof is not the solo proof")
+    if not (a["equal_again"] and b["equal_again"]):
+        raise AssertionError("the NCCL group's proofs changed between runs")
+    return res
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase0_device()
@@ -2171,6 +2405,8 @@ def main():
     phase1_build()
     phase2_fp()
     rows = phase3_kernels()
+    plane_rows, plane_launches = phase15_planes()
+    rows.update(plane_rows)
     phase4_stark101()
     cfg16, proof16 = phase5_cross_check()
     cfg24, proof24, warm24 = phase6_big()
@@ -2181,6 +2417,7 @@ def main():
     phase10_batch(cfg16, proof16)
     fused_launches = phase11_pipelined(cfg24, proof24, warm24)
     sharded_launches = phase13_sharded(proof24)
+    phase16_nccl_group()
     del proof24
     phase14_scaling_bench()
     giant_launches = phase12_past_2e26()
@@ -2194,6 +2431,8 @@ def main():
         launches[name] = giant_launches[name]
     for name in GLUE_KERNELS:
         launches[name] = main_launches[name]
+    for name in PLANE_KERNELS:
+        launches[name] = plane_launches[name]
     kernels = [
         {
             "name": name,
@@ -2211,6 +2450,7 @@ def main():
             "launches_prove_big_2e27": giant_launches[name],
             "launches_sharded_2e24_s8": sharded_launches[name],
             "launches_fused_stark101": main_launches[name],
+            **({"launch_floor_ms": rows[name]["launch_floor_ms"]} if name == "openings" else {}),
         }
         for name in SRC
     ]
@@ -2237,4 +2477,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--group-of-one"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _group_of_one_worker(int(sys.argv[2]))
+    else:
+        main()

@@ -937,3 +937,41 @@ def test_openings_kernel(dev, q, bsz):
             _eq(part, part_cpu)
             merged = part.view(torch.int32).clone() if merged is None else merged | part.view(torch.int32)
         _eq(fp.as_u32(merged), got)
+
+
+@pytest.mark.parametrize("n", [1, 3, 255, 257, 4096, 100_003])
+def test_leaf_planes_kernel_ragged(dev, n):
+    vals = fp.from_host(_u32(n, n), dev)
+    _eq(sha256_kernel.leaf_planes(vals), sha256_kernel.leaf_planes_plain(vals))
+
+
+@pytest.mark.parametrize("k", [1, 2, 255, 257, 4096, 50_001])
+def test_node_planes_kernels_ragged(dev, k):
+    planes = fp.from_host(_u32((8, 2 * k), k), dev)
+    _eq(sha256_kernel.node_planes(planes), sha256_kernel.node_planes_plain(planes))
+    _eq(sha256_kernel.node_planes_folded(planes), sha256_kernel.node_planes_folded_plain(planes))
+    rows = sha256_kernel.planes_to_rowmajor(planes)
+    _eq(rows, fp.as_u32(fp.as_i32(planes).t().contiguous()))
+    _eq(sha256_kernel.planes_to_rowmajor(sha256_kernel.node_planes(planes)),
+        sha256_kernel.node_hash_pairs(rows))
+
+
+@pytest.mark.parametrize("log_n", [1, 5, 11, 16])
+@pytest.mark.parametrize("stop", [1, 1024, 1 << 15])
+def test_planar_chain_on_card(dev, log_n, stop):
+    from zkstark_tpu_torch.hash import merkle
+
+    vals = fp.from_host(_u32(1 << log_n, log_n), dev)
+    want = merkle.build_levels(vals.cpu())
+    got = merkle.build_levels(vals, planar_stop=stop)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        _eq(g, w)
+
+
+@pytest.mark.parametrize("n", [1, 16, 1 << 16])
+def test_field_device_powers_on_card(dev, n):
+    base = fp.subgroup_generator(1 << 16)
+    _eq(fp.device_powers(base, n), fp.device_powers(base, n, device="cpu"))
+    _eq(fp.powers_iota(base, n, 7), fp.powers_iota(base, n, 7, device="cpu"))
+    assert fp.device_powers(base, n).device.type == "cuda"

@@ -14,9 +14,9 @@ import pytest
 import torch
 
 import zkstark_tpu.protocol as jproto
-from zkstark_tpu.protocol.config import alt_field_config
+from zkstark_tpu.protocol.config import alt_field_config as jax_alt_field_config
 from zkstark_tpu_torch import STARK101, STARK101_SECRET, Proof, VerificationError, prove, verify
-from zkstark_tpu_torch.protocol.config import STARK101_Q3, from_reference
+from zkstark_tpu_torch.protocol.config import STARK101_Q3, alt_field_config, from_reference
 from zkstark_tpu_torch.protocol.prover import ProverArtifacts
 from zkstark_tpu_torch.transcript import bincode
 
@@ -143,10 +143,11 @@ def test_from_reference_stark101():
 
 
 def test_from_reference_alt_field_same_bytes():
-    """A JAX config over the second prime, carried across, proves the same
-    bytes in both packages."""
-    jcfg = alt_field_config(trace_len=63, secret=31415)
-    cfg = from_reference(jcfg)
+    """A JAX config over the second prime, carried across, is the port's own
+    `alt_field_config` and proves the same bytes in both packages."""
+    jcfg = jax_alt_field_config(trace_len=63, secret=31415)
+    cfg = alt_field_config(trace_len=63, secret=31415)
+    assert cfg == from_reference(jcfg)
     assert cfg.field.p == jcfg.field.p == 2013265921
     want = jproto.prove(jcfg, 31415)
     got = prove(cfg, 31415, device="cpu")

@@ -1,6 +1,7 @@
 // Test entry points: the fp.cuh device functions on explicit operands, so a
-// check on the card can hold them against exact integers; and the text of a
-// CUDA error code for the Python wrappers' exceptions.
+// check on the card can hold them against exact integers; an empty kernel,
+// whose device time is the launch floor; and the text of a CUDA error code
+// for the Python wrappers' exceptions.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -22,6 +23,8 @@ __global__ void fp_check_kernel(const uint32_t* __restrict__ a, const uint32_t* 
   out[5 * n + i] = fp_add_r(x, y, f);
 }
 
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 // a, b: (n,) uint32 -> out: (6, n) rows mont_mul, add, sub, from_mont(a), and the
@@ -33,6 +36,13 @@ extern "C" int zk_fp_check(const uint32_t* a, const uint32_t* b, uint32_t* out, 
     const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
     fp_check_kernel<<<blocks, 256, 0, stream>>>(a, b, out, n, Fp{p, pinv});
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One launch of a kernel that does nothing: the floor under any launch's
+// device time.
+extern "C" int zk_empty(cudaStream_t stream) {
+  empty_kernel<<<1, 32, 0, stream>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -23,6 +23,20 @@
 // from the residues (the leaf hashes inside), so that a tree of at most
 // 2 * kTailMax values is one launch.
 //
+// Both hash kernels also take the TPU kernels' own word-plane layout (the
+// template parameter kPlanes): digest i as word w at out[w * n + i], 8 planes
+// of n words, as _leaf_kernel and _node_kernel store it (sha256_kernel.py:
+// 152-178), flat on the card (no 128-lane rows). The plane-major node reads
+// its 16 message words from two sets of 8 planes, `left` and `right`, each
+// plane `stride` words apart: for a level stored in bit-reversed order
+// (node_planes_folded) the left children are the first half of each plane and
+// the right children the second. Thread i then loads word w of its children
+// from left[w * stride + i] and right[w * stride + i] and stores word w of its
+// parent at out[w * k + i]: every load and store is 128 consecutive bytes a
+// warp, where the row-major node reads four 16-byte vectors at a 64-byte
+// stride. The arithmetic is the same; kPlanes = false is the row-major kernel
+// as it was.
+//
 // Reference semantics (merkle.rs:30-45): leaf = SHA256(u32 big-endian),
 // node = SHA256(left || right); digests are 8 big-endian words.
 #include <cstdint>
@@ -41,6 +55,19 @@ __device__ __forceinline__ void store_digest(uint32_t* out, const uint32_t st[8]
   o[1] = make_uint4(st[4], st[5], st[6], st[7]);
 }
 
+// Digest i of n: row-major at out[i * 8], or word w at out[w * n + i].
+template <bool kPlanes>
+__device__ __forceinline__ void store_hash(uint32_t* out, int64_t i, int64_t n,
+                                           const uint32_t st[8]) {
+  if constexpr (kPlanes) {
+#pragma unroll
+    for (int w = 0; w < 8; ++w) out[w * n + i] = st[w];
+  } else {
+    store_digest(out + i * 8, st);
+  }
+}
+
+template <bool kPlanes>
 __global__ void sha256_leaf(const uint32_t* __restrict__ vals, uint32_t* __restrict__ out,
                             int64_t n) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -54,28 +81,41 @@ __global__ void sha256_leaf(const uint32_t* __restrict__ vals, uint32_t* __restr
   uint32_t st[8];
   init_state(st);
   compress(st, w);
-  store_digest(out + i * 8, st);
+  store_hash<kPlanes>(out, i, n, st);
 }
 
-__global__ void sha256_node(const uint32_t* __restrict__ children, uint32_t* __restrict__ out,
-                            int64_t k) {
+// Row-major: children (2k, 8) at `left`, `right` and `stride` unused (they
+// come last, so the row-major instance's parameters keep their offsets).
+// Plane-major: word w of the left child of parent i at left[w * stride + i],
+// of the right child at right[w * stride + i].
+template <bool kPlanes>
+__global__ void sha256_node(const uint32_t* __restrict__ left, uint32_t* __restrict__ out,
+                            int64_t k, const uint32_t* __restrict__ right, int64_t stride) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= k) return;
-  const uint4* c = reinterpret_cast<const uint4*>(children + i * 16);
   uint32_t w[16];
+  if constexpr (kPlanes) {
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const uint4 v = c[q];
-    w[4 * q + 0] = v.x;
-    w[4 * q + 1] = v.y;
-    w[4 * q + 2] = v.z;
-    w[4 * q + 3] = v.w;
+    for (int q = 0; q < 8; ++q) {
+      w[q] = left[q * stride + i];
+      w[8 + q] = right[q * stride + i];
+    }
+  } else {
+    const uint4* c = reinterpret_cast<const uint4*>(left + i * 16);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint4 v = c[q];
+      w[4 * q + 0] = v.x;
+      w[4 * q + 1] = v.y;
+      w[4 * q + 2] = v.z;
+      w[4 * q + 3] = v.w;
+    }
   }
   uint32_t st[8];
   init_state(st);
   compress(st, w);
   compress_pad512(st);
-  store_digest(out + i * 8, st);
+  store_hash<kPlanes>(out, i, k, st);
 }
 
 constexpr int kTailMax = 1024;  // most parents of a tail's first level: one thread each
@@ -166,7 +206,7 @@ unsigned blocks_for(int64_t n) {
 extern "C" int zk_sha256_leaf(const uint32_t* vals, uint32_t* out, int64_t n,
                               cudaStream_t stream) {
   if (n < 0 || n > 0x7fffffffLL * kThreads) return static_cast<int>(cudaErrorInvalidValue);
-  if (n > 0) sha256_leaf<<<blocks_for(n), kThreads, 0, stream>>>(vals, out, n);
+  if (n > 0) sha256_leaf<false><<<blocks_for(n), kThreads, 0, stream>>>(vals, out, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -174,7 +214,31 @@ extern "C" int zk_sha256_leaf(const uint32_t* vals, uint32_t* out, int64_t n,
 extern "C" int zk_sha256_node(const uint32_t* children, uint32_t* out, int64_t k,
                               cudaStream_t stream) {
   if (k < 0 || k > 0x7fffffffLL * kThreads) return static_cast<int>(cudaErrorInvalidValue);
-  if (k > 0) sha256_node<<<blocks_for(k), kThreads, 0, stream>>>(children, out, k);
+  if (k > 0) {
+    sha256_node<false><<<blocks_for(k), kThreads, 0, stream>>>(children, out, k, nullptr, 0);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// vals: (n,) uint32 residues -> out: (8, n) word planes, word w of hash i at
+// out[w * n + i].
+extern "C" int zk_sha256_leaf_planes(const uint32_t* vals, uint32_t* out, int64_t n,
+                                     cudaStream_t stream) {
+  if (n < 0 || n > 0x7fffffffLL * kThreads) return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 0) sha256_leaf<true><<<blocks_for(n), kThreads, 0, stream>>>(vals, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// left, right: 8 planes each, plane w at w * stride words (stride >= k); word w
+// of parent i's left child at left[w * stride + i] -> out: (8, k) planes.
+extern "C" int zk_sha256_node_planes(const uint32_t* left, const uint32_t* right, uint32_t* out,
+                                     int64_t k, int64_t stride, cudaStream_t stream) {
+  if (k < 0 || k > 0x7fffffffLL * kThreads || stride < k) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (k > 0) {
+    sha256_node<true><<<blocks_for(k), kThreads, 0, stream>>>(left, out, k, right, stride);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -126,6 +126,19 @@ class Field:
         """g^((p-1)/order), as the reference derives it (prover.rs:48-49)."""
         return _subgroup_generator(self, order)
 
+    def multiplicative_order(self, x: int) -> int:
+        """Exact multiplicative order of x in F_p^* (reference field.rs:45-49),
+        by refining p − 1 over its prime factors."""
+        p = self.p
+        x %= p
+        if x == 0:
+            raise ValueError("0 has no multiplicative order")
+        order = p - 1
+        for q in _prime_factors(p - 1):
+            while order % q == 0 and pow(x, order // q, p) == 1:
+                order //= q
+        return order
+
     def mont_scalar(self, v: int) -> int:
         """to_mont of one host residue, as a Python int."""
         return int(self.host_to_mont(np.array([v % self.p], np.uint32))[0])
@@ -136,6 +149,15 @@ class Field:
             (np.asarray(arr).astype(np.uint64) * np.uint64(self.r_mod_p))
             % np.uint64(self.p)
         ).astype(np.uint32)
+
+    def host_powers(self, base: int, count: int, start: int = 1) -> np.ndarray:
+        """[start, start·base, start·base², …] as `count` uint32 residues."""
+        out = np.empty(count, dtype=np.uint32)
+        acc = start % self.p
+        for i in range(count):
+            out[i] = acc
+            acc = (acc * base) % self.p
+        return out
 
     def host_powers_pow2(self, base: int, n: int, scale: int = 1) -> np.ndarray:
         """[scale·base^j for j < n] as uint32 residues, n a power of two, by
@@ -191,9 +213,26 @@ P = 3221225473  # 3·2^30 + 1, the stark-101 prime (reference main.rs:13)
 FIELD101 = field_for(P)
 FIELD101._generator = 5  # the reference finds 5 (prover.rs:44)
 
+TWO_ADICITY = FIELD101.two_adicity  # 30: p − 1 = 3·2^30
+GENERATOR = 5  # smallest multiplicative generator (reference field.rs:52-86)
+R_MOD_P = FIELD101.r_mod_p  # Montgomery form of 1
+R2_MOD_P = FIELD101.r2_mod_p  # to_mont multiplier
+P_INV_NEG = FIELD101.p_inv_neg  # p' = −p^{-1} mod 2^32
+
 # 15·2^27 + 1: the second 2-adic prime the JAX package proves over.
 P_ALT = 2013265921
 FIELD_ALT = field_for(P_ALT)
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device(device), raising if it is a CUDA device and there is no
+    card, or neither CPU nor CUDA."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r}: CUDA is not available")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
 
 
 # ---------------------------------------------------------------------------
@@ -372,3 +411,77 @@ def powers_iota_f(f: Field, base: int, n: int, scale: int = 1, device="cpu"):
         )
         acc = mont_mul_w(f, acc, torch.where(((j >> b) & 1) == 1, step, one))
     return narrow(acc)
+
+
+def device_powers_f(f: Field, base: int, n: int, device="cuda"):
+    """[1, base, …, base^{n-1}] in Montgomery form on `device`, n a power of
+    two, by log-doubling: log2(n) products of the prefix by base^length."""
+    assert n >= 1 and n & (n - 1) == 0
+    arr = torch.full((1,), f.r_mod_p, dtype=torch.int64, device=resolve_device(device))
+    while arr.shape[0] < n:
+        step = f.mont_scalar(pow(base, arr.shape[0], f.p))
+        arr = torch.cat([arr, mont_mul_w(f, arr, step)])
+    return narrow(arr)
+
+
+# ---------------------------------------------------------------------------
+# The protocol field's ops and host helpers as module functions (FIELD101),
+# as the JAX package's module exports them
+# ---------------------------------------------------------------------------
+
+mont_mul = functools.partial(mont_mul_f, FIELD101)
+to_mont = functools.partial(to_mont_f, FIELD101)
+from_mont = functools.partial(from_mont_f, FIELD101)
+add = functools.partial(add_f, FIELD101)
+sub = functools.partial(sub_f, FIELD101)
+neg = functools.partial(neg_f, FIELD101)
+pow_static = functools.partial(pow_static_f, FIELD101)
+inv = functools.partial(inv_f, FIELD101)
+
+
+def device_powers(base: int, n: int, device="cuda"):
+    return device_powers_f(FIELD101, base, n, device)
+
+
+def powers_iota(base: int, n: int, scale: int = 1, device="cuda"):
+    return powers_iota_f(FIELD101, base, n, scale, resolve_device(device))
+
+
+def host_pow(base: int, e: int, modulus: int = P) -> int:
+    return pow(base, e % (modulus - 1) if e >= 0 else e, modulus)
+
+
+def multiplicative_order(x: int, modulus: int = P) -> int:
+    return field_for(modulus).multiplicative_order(x)
+
+
+def find_generator(modulus: int = P) -> int:
+    return field_for(modulus).generator
+
+
+def subgroup_generator(order: int) -> int:
+    return FIELD101.subgroup_generator(order)
+
+
+def host_powers(base: int, count: int, start: int = 1) -> np.ndarray:
+    return FIELD101.host_powers(base, count, start)
+
+
+def host_to_mont(arr: np.ndarray) -> np.ndarray:
+    return FIELD101.host_to_mont(arr)
+
+
+def host_powers_pow2(base: int, n: int, scale: int = 1) -> np.ndarray:
+    return FIELD101.host_powers_pow2(base, n, scale)
+
+
+def host_vandermonde(bases: np.ndarray, n: int) -> np.ndarray:
+    return FIELD101.host_vandermonde(bases, n)
+
+
+def host_pow_vec(bases: np.ndarray, e: int) -> np.ndarray:
+    return FIELD101.host_pow_vec(bases, e)
+
+
+def host_inv_vec(a: np.ndarray) -> np.ndarray:
+    return FIELD101.host_inv_vec(a)

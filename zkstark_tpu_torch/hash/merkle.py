@@ -7,7 +7,11 @@ exactly a node's left‖right message, so each wide level is one
 `sha256_kernel.node_hash_pairs` call on the level below, and from
 `sha256_kernel.TAIL_PARENTS` parents a tree down to the root the levels are
 one `sha256_kernel.tree_tail` call (a tree of at most twice that many values
-is one call, leaf hashes included). Leaf encoding
+is one call, leaf hashes included). With `planar_stop`
+(default off) `build_levels` hashes the wide levels on the TPU kernels' own
+layout instead: bit-reversed leaves as word planes, `node_planes_folded` down
+to `planar_stop` parents, then row-major; every level it returns is still
+(k, 8) natural row-major (`planar_to_natural`). Leaf encoding
 (big-endian u32, merkle.rs:30-34), node order (left‖right, merkle.rs:42-45),
 auth-path order (leaf→root siblings, merkle.rs:54-71) and the index-parity
 walk of compute_root_from_path (merkle.rs:82-110) are the reference's.
@@ -15,14 +19,40 @@ walk of compute_root_from_path (merkle.rs:82-110) are the reference's.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from zkstark_tpu_torch.field import fp
 from zkstark_tpu_torch.hash import sha256
-from zkstark_tpu_torch.ops import sha256_kernel
+from zkstark_tpu_torch.ntt.core import bit_reverse_indices
+from zkstark_tpu_torch.ops import ntt_kernel, sha256_kernel
+
+
+# Where the plane-major chain of `build_levels(..., planar_stop=...)` turns
+# row-major: at 2^22 parents, the JAX package's point.
+PLANAR_STOP = 1 << 22
+
+
+def level_size(level: torch.Tensor) -> int:
+    """The digests of a (k, 8) level."""
+    return level.shape[0]
+
+
+def _levels_above(level: torch.Tensor, bsz: int, n: int) -> list:
+    """The levels above (bsz·n, 8) row-major digests, n a tree: a
+    `node_hash_pairs` call a wide level, then one `tree_tail` call."""
+    levels = []
+    while n > 2 * sha256_kernel.TAIL_PARENTS:
+        n //= 2
+        level = sha256_kernel.node_hash_pairs(level)
+        levels.append(level.reshape(bsz, n, 8))
+    if n > 1:
+        levels += sha256_kernel.tree_tail(level, bsz)
+    return levels
 
 
 def build_levels_batch(values: torch.Tensor) -> list:
@@ -40,20 +70,39 @@ def build_levels_batch(values: torch.Tensor) -> list:
             flat = flat.clone()
         return sha256_kernel.tree_tail(flat, bsz, from_values=True)
     level = sha256_kernel.leaf_hash(flat)
-    levels = [level.reshape(bsz, n, 8)]
-    while n > tail:
-        n //= 2
-        level = sha256_kernel.node_hash_pairs(level)
-        levels.append(level.reshape(bsz, n, 8))
-    if n > 1:
-        levels += sha256_kernel.tree_tail(level, bsz)
-    return levels
+    return [level.reshape(bsz, n, 8)] + _levels_above(level, bsz, n)
 
 
-def build_levels(values: torch.Tensor) -> list:
+@functools.lru_cache(maxsize=8)
+def _bitrev(n: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(bit_reverse_indices(n).astype(np.int64)).to(device)
+
+
+def planar_to_natural(planes: torch.Tensor) -> torch.Tensor:
+    """(8, k) word planes in bit-reversed digest order → (k, 8) natural
+    row-major: the `transpose` kernel with bit-reversed output rows."""
+    return ntt_kernel.transpose(planes.reshape(-1), 8, planes.shape[1], brev=True)
+
+
+def build_levels(values: torch.Tensor, planar_stop: int | None = None) -> list:
     """All tree levels bottom-up from (n,) uint32 residues, n a power of two:
-    [leaves (n, 8), …, root (1, 8)], on the values' device."""
-    return [level[0] for level in build_levels_batch(values[None])]
+    [leaves (n, 8), …, root (1, 8)], on the values' device. With
+    `planar_stop`, the leaves are permuted to bit-reversed order and hashed
+    as word planes (`leaf_planes`), every level of at least `planar_stop`
+    parents is `node_planes_folded` of the planes below, and the rest are
+    row-major as by default; each level is returned natural row-major."""
+    if planar_stop is None:
+        return [level[0] for level in build_levels_batch(values[None])]
+    n = values.shape[0]
+    assert n >= 2 and n & (n - 1) == 0 and planar_stop >= 1
+    vals = fp.as_u32(fp.as_i32(values).index_select(0, _bitrev(n, values.device)))
+    planes = sha256_kernel.leaf_planes(vals)
+    levels = [planar_to_natural(planes)]
+    while planes.shape[1] // 2 >= planar_stop:
+        planes = sha256_kernel.node_planes_folded(planes)
+        levels.append(planar_to_natural(planes))
+    k = levels[-1].shape[0]
+    return levels + [level[0] for level in _levels_above(levels[-1], 1, k)]
 
 
 @dataclass

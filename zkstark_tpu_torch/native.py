@@ -1,5 +1,6 @@
-"""ctypes binding to the independent C++ verifier of ``native/zkstark_native.cpp``
-— counterpart of ``zkstark_tpu/native.py``.
+"""ctypes binding to the independent C++ verifier and the Fiat-Shamir channel
+primitives of ``native/zkstark_native.cpp`` — counterpart of
+``zkstark_tpu/native.py``.
 
 At first use, ``g++ -O3 -fPIC -shared`` builds the repository's
 ``native/zkstark_native.cpp`` into ``build/zkstark_tpu_torch/`` under the
@@ -54,7 +55,25 @@ def native() -> ctypes.CDLL:
         ctypes.c_size_t,
     ]
     lib.zk_verify.restype = ctypes.c_int
+    lib.zk_channel_commit.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_size_t]
+    lib.zk_channel_commit.restype = None
+    lib.zk_channel_draw.argtypes = [ctypes.c_char_p]
+    lib.zk_channel_draw.restype = ctypes.c_uint32
     return lib
+
+
+def channel_commit(state: bytes, payload: bytes) -> bytes:
+    """The channel state after committing `payload`: SHA256(state ‖ payload)."""
+    buf = ctypes.create_string_buffer(state, 32)
+    native().zk_channel_commit(buf, payload, len(payload))
+    return buf.raw[:32]
+
+
+def channel_draw(state: bytes) -> tuple:
+    """(the state after the draw, the drawn u32) of one channel draw."""
+    buf = ctypes.create_string_buffer(state, 32)
+    draw = native().zk_channel_draw(buf)
+    return buf.raw[:32], int(draw)
 
 
 def verify_native(proof, cfg) -> None:

@@ -22,6 +22,8 @@ def launch_counts() -> dict:
         "sha256_leaf": sha256_kernel.leaf_launches,
         "sha256_node": sha256_kernel.node_launches,
         "sha256_tree_tail": sha256_kernel.tail_launches,
+        "sha256_leaf_planes": sha256_kernel.leaf_planes_launches,
+        "sha256_node_planes": sha256_kernel.node_planes_launches,
         "ntt_rows": ntt_kernel.ntt_launches,
         "transpose": ntt_kernel.transpose_launches,
         "ntt_rows_pease": ntt_kernel.pease_launches,
@@ -40,6 +42,8 @@ def reset_launch_counts() -> None:
     sha256_kernel.leaf_launches = 0
     sha256_kernel.node_launches = 0
     sha256_kernel.tail_launches = 0
+    sha256_kernel.leaf_planes_launches = 0
+    sha256_kernel.node_planes_launches = 0
     ntt_kernel.ntt_launches = 0
     ntt_kernel.transpose_launches = 0
     ntt_kernel.pease_launches = 0

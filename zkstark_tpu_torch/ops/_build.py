@@ -37,6 +37,10 @@ _SIGNATURES = {
     "zk_sha256_leaf": (_P, _P, _I64, _P),
     # (children, out, k, stream)
     "zk_sha256_node": (_P, _P, _I64, _P),
+    # (vals, out planes, n, stream)
+    "zk_sha256_leaf_planes": (_P, _P, _I64, _P),
+    # (left planes, right planes, out planes, k, stride, stream)
+    "zk_sha256_node_planes": (_P, _P, _P, _I64, _I64, _P),
     # (in, out, trees, t, from_values, stream)
     "zk_sha256_tree_tail": (_P, _P, _I64, _INT, _INT, _P),
     # (x, out, pass_tw, log_m, batch, valid, w8, w4, w8^3,
@@ -90,6 +94,8 @@ _SIGNATURES = {
     "zk_openings": (_P, _P, _I64, _INT, _INT, _INT, _P, _INT, _P, _INT, _P),
     # (a, b, out, n, p, p_inv_neg, stream)
     "zk_fp_check": (_P, _P, _P, _I64, _U32, _U32, _P),
+    # (stream)
+    "zk_empty": (_P,),
 }
 
 build_seconds = 0.0  # wall time of the last nvcc run in this process

@@ -73,6 +73,7 @@ from __future__ import annotations
 import functools
 import os
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -546,12 +547,22 @@ def ntt_rows_pease(
     return out
 
 
+class FourStepPlan(NamedTuple):
+    """The constants of one (n, w, scale) four-step: its factors and the
+    transposed twiddle tables (host numpy, contiguous). The row kernels take
+    their stage roots from the root itself, so a plan holds no stage tables."""
+
+    n1: int
+    n2: int
+    ut: np.ndarray  # U.T, (n2 / vblk, n1)
+    vt: np.ndarray  # V.T, (vblk, n1)
+
+
 @functools.lru_cache(maxsize=None)
 def _fourstep_constants(
     n: int, w: int, inverse_scale: int | None, field: Field = FIELD101
-):
-    """n = n1·n2 (n1 ≥ n2) and the transposed twiddle factors U.T, V.T
-    (host numpy, contiguous).
+) -> FourStepPlan:
+    """n = n1·n2 (n1 ≥ n2) and the transposed twiddle factors U.T, V.T.
 
     The twiddle matrix T[k1, j2] = w^{k1·j2} is not built: with
     j2 = vblk·jh + jl it factors exactly as U[k1, jh]·V[k1, jl],
@@ -559,7 +570,7 @@ def _fourstep_constants(
     vblk = min(128, n2). An INTT's 1/n folds into U."""
     n1, n2 = split(n)
     u, v = _twiddle_uv_host(n1, n2, w, inverse_scale, field)
-    return n1, n2, np.ascontiguousarray(u.T), np.ascontiguousarray(v.T)
+    return FourStepPlan(n1, n2, np.ascontiguousarray(u.T), np.ascontiguousarray(v.T))
 
 
 def _twiddle_uv_host(

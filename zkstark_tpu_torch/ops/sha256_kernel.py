@@ -13,6 +13,17 @@ row-major (N, 8), the layout the Merkle levels keep; the TPU's lane-planar
 (8, m, 128) layout and its 1024-hash minimum batch are not carried over, so
 any N ≥ 1 goes through the kernel on the card.
 
+`leaf_planes`, `node_planes` and `node_planes_folded` are the same two
+kernels on the TPU kernels' own layout, the digests of a level as 8 word
+planes: flat (8, n) uint32, word w of hash i at [w, i] (the JAX package's
+(8, n/128, 128) planes reshaped, without its 128-lane rows). `node_planes`
+pairs children 2j and 2j+1; `node_planes_folded` takes a level stored in
+bit-reversed order, whose left children are the first half of each plane and
+right children the second, and leaves its parents bit-reversed too.
+`planes_to_rowmajor` turns planes into (n, 8) rows with the `transpose`
+kernel. The Merkle trees take this layout only under an option of
+`hash.merkle.build_levels` (default off).
+
 `tree_tail` is the node kernel for the shape the Merkle trees launch most:
 once a level has at most `TAIL_PARENTS` parents a tree, one launch
 (``sha256_tree_tail``, one block a tree, a thread a parent, the levels handed
@@ -27,12 +38,19 @@ from __future__ import annotations
 
 import torch
 
+from zkstark_tpu_torch.field import fp
 from zkstark_tpu_torch.hash import sha256
-from zkstark_tpu_torch.ops import _build
+from zkstark_tpu_torch.ops import _build, ntt_kernel
 
 leaf_launches = 0  # launches of sha256_leaf, counted by leaf_hash
 node_launches = 0  # launches of sha256_node, counted by node_hash_pairs
 tail_launches = 0  # launches of sha256_tree_tail, counted by tree_tail
+leaf_planes_launches = 0  # launches of sha256_leaf<planes>, counted by leaf_planes
+node_planes_launches = 0  # launches of sha256_node<planes>, counted by _node_planes
+
+# The smallest batch the hash kernels take: any n >= 1 (the TPU kernels' was
+# one grid step of 1024 hashes).
+MIN_BATCH = 1
 
 # The most parents a tree that `tree_tail` takes in its first level (a thread
 # each, one block a tree): the kernel's limit, and where `hash/merkle.py`
@@ -92,6 +110,96 @@ def node_hash_pairs(children: torch.Tensor) -> torch.Tensor:
     _build.check(rc, "sha256_node")
     node_launches += 1
     return out
+
+
+def leaf_planes_plain(values: torch.Tensor) -> torch.Tensor:
+    return fp.as_u32(fp.as_i32(leaf_hash_plain(values)).t().contiguous())
+
+
+def _node_planes_plain(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """Parents of (8, k) left and right child planes, as (8, k) planes."""
+    rows = sha256.node_hash(fp.as_u32(fp.as_i32(left).t()), fp.as_u32(fp.as_i32(right).t()))
+    return fp.as_u32(fp.as_i32(rows).t().contiguous())
+
+
+def node_planes_plain(planes: torch.Tensor) -> torch.Tensor:
+    p = fp.as_i32(planes)
+    return _node_planes_plain(fp.as_u32(p[:, 0::2]), fp.as_u32(p[:, 1::2]))
+
+
+def node_planes_folded_plain(planes: torch.Tensor) -> torch.Tensor:
+    k = planes.shape[1] // 2
+    return _node_planes_plain(planes[:, :k], planes[:, k:])
+
+
+def leaf_planes(values: torch.Tensor) -> torch.Tensor:
+    """(n,) uint32 → (8, n) uint32 leaf digests as word planes."""
+    global leaf_planes_launches
+    _build.require(values, "sha256_leaf_planes", 1)
+    if values.device.type == "cpu":
+        return leaf_planes_plain(values)
+    n = values.shape[0]
+    out = torch.empty((8, n), dtype=torch.uint32, device=values.device)
+    if n == 0:
+        return out
+    with torch.cuda.device(values.device):
+        rc = _build.kernels().zk_sha256_leaf_planes(
+            values.data_ptr(), out.data_ptr(), n, _build.stream(values)
+        )
+    _build.check(rc, "sha256_leaf_planes")
+    leaf_planes_launches += 1
+    return out
+
+
+def _check_planes(planes: torch.Tensor, what: str) -> int:
+    _build.require(planes, what, 2)
+    if planes.shape[0] != 8 or planes.shape[1] % 2:
+        raise ValueError(f"{what}: needs (8, 2k) word planes, got {tuple(planes.shape)}")
+    return planes.shape[1] // 2
+
+
+def _node_planes(left: torch.Tensor, right_ptr: int, stride: int, k: int) -> torch.Tensor:
+    """The plane-major node kernel: left child planes at `left`, right at
+    `right_ptr`, each plane `stride` words apart → (8, k) parent planes."""
+    global node_planes_launches
+    out = torch.empty((8, k), dtype=torch.uint32, device=left.device)
+    if k == 0:
+        return out
+    with torch.cuda.device(left.device):
+        rc = _build.kernels().zk_sha256_node_planes(
+            left.data_ptr(), right_ptr, out.data_ptr(), k, stride, _build.stream(left)
+        )
+    _build.check(rc, "sha256_node_planes")
+    node_planes_launches += 1
+    return out
+
+
+def node_planes(planes: torch.Tensor) -> torch.Tensor:
+    """(8, 2k) child planes → (8, k) parent planes; parent j =
+    SHA256(child 2j ‖ child 2j+1). The even and odd children are first
+    copied apart (a stride-2 split, as in the JAX package)."""
+    k = _check_planes(planes, "sha256_node_planes")
+    if planes.device.type == "cpu":
+        return node_planes_plain(planes)
+    p = fp.as_i32(planes)
+    left, right = fp.as_u32(p[:, 0::2].contiguous()), fp.as_u32(p[:, 1::2].contiguous())
+    return _node_planes(left, right.data_ptr(), k, k)
+
+
+def node_planes_folded(planes: torch.Tensor) -> torch.Tensor:
+    """(8, 2k) child planes in bit-reversed order → (8, k) parent planes,
+    bit-reversed too: child 2j at slot brev(j), child 2j+1 at k + brev(j),
+    so parent j = SHA256(planes[:, s] ‖ planes[:, k + s]) at slot s, read in
+    place."""
+    k = _check_planes(planes, "sha256_node_planes")
+    if planes.device.type == "cpu":
+        return node_planes_folded_plain(planes)
+    return _node_planes(planes, planes.data_ptr() + 4 * k, 2 * k, k)
+
+
+def planes_to_rowmajor(planes: torch.Tensor) -> torch.Tensor:
+    """(8, n) word planes → (n, 8) digest rows (the `transpose` kernel)."""
+    return ntt_kernel.transpose(planes.reshape(-1), 8, planes.shape[1])
 
 
 def _tail_check(level: torch.Tensor, trees: int, from_values: bool) -> int:

@@ -114,11 +114,7 @@ def initialize_distributed(
 
 
 def _resolve(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {str(device)!r}: CUDA is not available")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
+    dev = fp.resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")) % torch.cuda.device_count())
     return dev
@@ -129,13 +125,15 @@ class Mesh:
     """`size` shards over `n_processes` processes; this process (`process`)
     holds the shards `local` on `device`. `shape` names the axes (flattened
     in order, process-major) and `bytes_moved` counts what crossed between
-    shards, by collective."""
+    shards, by collective. `grouped`: the collectives go through the
+    process group (torch.distributed), also in a group of one process."""
 
     shape: dict
     device: torch.device
     n_processes: int = 1
     process: int = 0
     bytes_moved: dict = field(default_factory=dict)
+    grouped: bool = False
 
     def __post_init__(self):
         self.size = 1
@@ -152,8 +150,9 @@ class Mesh:
 
     @property
     def is_local(self) -> bool:
-        """All shards in this process."""
-        return self.n_processes == 1
+        """All shards in this process and no process group: the collectives
+        are device copies."""
+        return not self.grouped
 
     def owner(self, shard: int) -> int:
         """The process that holds `shard`."""
@@ -292,14 +291,15 @@ def _processes() -> tuple[int, int]:
 
 def make_mesh(n_devices: int | None = None, device="cuda") -> Mesh:
     """A 1-D mesh of `n_devices` shards (default: one a process). In a
-    single process it is a local mesh on `device`; in a process group the
-    shards split evenly over the processes, each on its own `device` (a card
-    a process, picked by ``LOCAL_RANK``)."""
+    single process it is a local mesh on `device`; in a process group (of
+    any size, one included) the shards split evenly over the processes, each
+    on its own `device` (a card a process, picked by ``LOCAL_RANK``), and the
+    collectives run through the group."""
     procs, rank = _processes()
     n = procs if n_devices is None else n_devices
     if n < 1 or n % procs:
         raise ValueError(f"make_mesh: {n} shards do not split over {procs} processes")
-    return Mesh({DOMAIN_AXIS: n}, _resolve(device), procs, rank)
+    return Mesh({DOMAIN_AXIS: n}, _resolve(device), procs, rank, grouped=_dist_ready())
 
 
 def make_host_chip_mesh(
@@ -314,7 +314,8 @@ def make_host_chip_mesh(
     if procs > 1 and n_hosts != procs:
         raise ValueError(f"make_host_chip_mesh: {n_hosts} hosts in a group of {procs} processes")
     chips = chips_per_host or 1
-    return Mesh({HOST_AXIS: n_hosts, CHIP_AXIS: chips}, _resolve(device), procs, rank)
+    return Mesh({HOST_AXIS: n_hosts, CHIP_AXIS: chips}, _resolve(device), procs, rank,
+                grouped=_dist_ready())
 
 
 def mesh_size(mesh: Mesh) -> int:

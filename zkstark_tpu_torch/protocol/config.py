@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field as dc_field
 
-from zkstark_tpu_torch.field.fp import FIELD101, Field, field_for
+from zkstark_tpu_torch.field.fp import FIELD101, FIELD_ALT, Field, field_for
 from zkstark_tpu_torch.protocol.air import AIRS, FIBONACCI_SQ, Air
 
 
@@ -84,6 +84,13 @@ STARK101 = StarkConfig()
 STARK101_SECRET = 3141592  # the reference's baked-in witness (prover.rs:34)
 # The same statement with three FRI queries (tests/test_protocol_golden_q3.py).
 STARK101_Q3 = StarkConfig(n_queries=3)
+
+
+def alt_field_config(trace_len: int = 1023, secret: int = 3141592, **kw) -> StarkConfig:
+    """The stark-101 statement over the second prime (p = 15·2^27 + 1), its
+    public output derived from the witness (the recurrence wraps mod p)."""
+    trace = FIBONACCI_SQ.trace(trace_len, secret, FIELD_ALT.p)
+    return StarkConfig(trace_len=trace_len, boundary_last=int(trace[-1]), field=FIELD_ALT, **kw)
 
 
 def from_reference(cfg_like) -> StarkConfig:

@@ -37,6 +37,7 @@ import torch
 
 from zkstark_tpu_torch import ntt
 from zkstark_tpu_torch.field import fp
+from zkstark_tpu_torch.field.fp import resolve_device
 from zkstark_tpu_torch.hash import merkle
 from zkstark_tpu_torch.hash.sha256 import digest_to_bytes
 from zkstark_tpu_torch.ops import composition, constants, elementwise, fri_fold
@@ -246,6 +247,16 @@ def _fri_layer_params(cfg: StarkConfig, layer: int):
     return pow(base, p - 2, p), pow(off, p - 2, p)
 
 
+def fri_layer_constants(cfg: StarkConfig, layer: int) -> np.ndarray:
+    """1/x_j for j < m/2 of FRI layer `layer` (m its domain size), Montgomery
+    uint32 host numpy: the inverse first half-domain that the fold's
+    `_fri_layer_params` tables stand for, as the JAX package returns it."""
+    inv_base, inv_off = _fri_layer_params(cfg, layer)
+    fld = cfg.field
+    return fld.host_to_mont(fld.host_powers_pow2(inv_base, (cfg.eval_domain >> layer) // 2,
+                                                 scale=inv_off))
+
+
 def fri_fold_eval(cfg: StarkConfig, layer: int, evals: torch.Tensor, beta_mont, build=None):
     """Evaluation-form FRI fold P'(x²) = (P(x)+P(−x))/2 + β·(P(x)−P(−x))/(2x)
     — the reference's coefficient fold (polynomial.rs:385-400) on the
@@ -293,17 +304,6 @@ class _PhaseClock:
         now = time.perf_counter()
         self.timings[name] = self.timings.get(name, 0.0) + now - self.t0
         self.t0 = now
-
-
-def resolve_device(device) -> torch.device:
-    """torch.device(device), raising if it is a CUDA device and there is no
-    card, or neither CPU nor CUDA."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {str(device)!r}: CUDA is not available")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 def _root_bytes(levels: list) -> bytes:

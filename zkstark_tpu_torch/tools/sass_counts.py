@@ -97,11 +97,12 @@ def main(argv=None) -> int:
     for name, instrs in parse(sass).items():
         short = next((k for k in ("ntt_rows_pease_kernel", "ntt_rows_kernel", "transpose_kernel",
                                   "sha256_leaf", "sha256_node", "sha256_tree_tail",
-                                  "fp_check_kernel",
+                                  "fp_check_kernel", "empty_kernel",
                                   "fs_chain_kernel", "fri_fold_kernel", "limb_dft_rows_kernel",
                                   "composition_kernel") if k in name),
                      name)
-        instance = re.search(r"kernelI((?:L[ib]\d+E)+)E", name)  # a template instance: its arguments
+        # a template instance: its arguments
+        instance = re.search(r"(?:kernel|leaf|node)I((?:L[ib]\d+E)+)E", name)
         if instance:
             short += f"<{','.join(re.findall(r'L[ib](\d+)E', instance.group(1)))}>"
         print(json.dumps({"kernel": short, **summarize(instrs)}), flush=True)
