@@ -7,9 +7,14 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, one output line (or a few) each:
   0. the card's name and power limit (nvidia-smi); fails without CUDA;
-  1. build the CUDA kernels (csrc/, nvcc sm_90a) and the C++ verifier;
+  1. build the CUDA kernels (csrc/, nvcc sm_90a), the C++ verifier and, for
+     phase 3's A/B only, the design of `openings` it replaced
+     (`OLD_OPENINGS_CU`, kept in this script, not in the package);
   2. the fp.cuh field functions against exact integers and the plain-torch
      ops, on edge values next to p and 2^16 random pairs, for both primes;
+     then the `Field` methods on the card against the CPU, `device_powers`
+     and `powers_iota` through the `powers` kernel at 2^20: the main-path
+     run whose `powers` launches are counted;
   3. each kernel against its plain-torch twin on the card at the prove
      path's shapes, with both times and the least time the card could take
      (its bound); the tolerance is 0 (the field has no rounding, so every
@@ -37,10 +42,14 @@ Phases, one output line (or a few) each:
      plain-torch glue, `from_mont` (f_eval at 2^24, 2^13, 2^25),
      `endpoint_fix` (the INTT sizes 2^21, 2^10, 2^25, and B = 32 at 2^10),
      `constants` (2^24 square-chain and fibonacci-sq, stark-101) and
-     `openings` (stark-101 at B = 1 and 32, one 2^24 proof, shard 3 of 8
-     at 2^24), each with its device time under torch.profiler; the launch
+     `openings` (the fused core's whole packed result and the openings
+     alone, stark-101 at B = 1 and 32, one 2^24 proof, shard 3 of 8 at
+     2^24, with the parameter block's bytes; at stark-101 the wrapper's host
+     time over 50 calls and the A/B in turns against the old design, device
+     and host times), each with its device time under torch.profiler;
+     `powers` at 2^20 against its plain twin; the launch
      floor (the profiled device time of an empty kernel launched through
-     `_build`) with `openings`' share of it, and the batched transposes of
+     `_build`) with `openings`' share of it and `powers`' multiple, and the batched transposes of
      16 x (128 x 1024) and 16 x (1024 x 1024) as profiled device time beside
      `.t().contiguous()`'s;
   4. stark-101 proved on the card: the golden 7,836-byte transcript and
@@ -63,9 +72,13 @@ Phases, one output line (or a few) each:
   9. the one-fetch path alone: stark-101 through ``prove(fused=True)`` equals
      the golden transcript and ``prove(fused=False)``, both verifiers accept,
      the fused core runs under ``torch.cuda.set_sync_debug_mode("error")``
-     (no call that waits for the device), warm times of both paths, and the
-     device's busy share of one profiled fused prove, which makes at most
-     `MAX_STARK101_SPANS` device spans; its first prove (composition
+     (no call that waits for the device), both paths in turns (7 warm
+     proves each, median and spread, then 7 each with their spans), and
+     the device's busy share of one profiled fused prove, which makes at most
+     `MAX_STARK101_SPANS` device spans, none of plain torch: besides the
+     port's kernels at most one copy each of the witness's upload (the
+     trace's bytes) and the fetch (the packed vector's bytes, read from the
+     profile's exported trace); its first prove (composition
      constants built cold) is the main-path run whose launches of the glue
      kernels are counted; `_plain_loops` shows no plain-torch launch left in
      the interpolation, `from_mont` and the openings (also phase 11, at 2^24);
@@ -79,7 +92,8 @@ Phases, one output line (or a few) each:
      16 LDEs at 2^20 within 16 times one LDE's working set;
  11. pipelined: ``prove_pipelined`` of 8 stark-101 proofs, and of 3 proofs of
      the 2^24 statement at depth 2, each equal to phase 6's proof, with the
-     per-proof time beside the solo warm times and the peak memory; this is
+     per-proof time beside the solo warm times and the peak memory; the 2^24
+     `prove()` and `prove(fused=False)` in turns, 5 each, as in phase 9; this is
      the main-path run of the one-fetch slice whose launches are counted;
  12. past 2^26: the 16,777,215-step square-chain statement (2^27 points,
      24 FRI rounds) through ``tools.prove_big.run(24, repeats=1)`` and once
@@ -121,8 +135,10 @@ Any failure is an uncaught exception and a nonzero exit; nothing is caught.
 """
 
 import json
+import math
 import os
 import subprocess
+from collections import Counter
 import sys
 import tempfile
 import time
@@ -206,6 +222,7 @@ SRC = {
     "constants": ("zkstark_tpu_torch/csrc/constants.cu", "zkstark_tpu/protocol/prover.py:53"),
     "sha256_leaf_planes": ("zkstark_tpu_torch/csrc/sha256.cu", "zkstark_tpu/ops/sha256_kernel.py:105"),
     "sha256_node_planes": ("zkstark_tpu_torch/csrc/sha256.cu", "zkstark_tpu/ops/sha256_kernel.py:139"),
+    "powers": ("zkstark_tpu_torch/csrc/powers.cu", "zkstark_tpu/field/fp.py:484"),
 }
 # the hash kernels on the word-plane layout, driven by `build_levels` with its
 # plane-major chain (phase 15)
@@ -217,9 +234,222 @@ GLUE_KERNELS = ("openings", "endpoint_fix", "from_mont", "constants")
 # launch nothing but the port's kernels
 PLAIN_LOOPS = ("interpolate_rank1_fix", "from_mont_f_eval", "opening_gathers")
 # the most device spans (kernels and copies) of one profiled stark-101 fused prove
-MAX_STARK101_SPANS = 120
+MAX_STARK101_SPANS = 50
+# the device spans of a fused prove that are not the port's kernels: at most
+# one copy each, the witness's upload (host to device, the trace's bytes) and
+# the packed result's fetch (device to host, the packed vector's bytes)
+COPY_SPANS = ("Memcpy HtoD", "Memcpy DtoH")
 # csrc/constants.cu: the points a thread inverts with one Fermat inversion
 CONST_TILE = 8
+
+
+# The design of `openings` before its redesign, kept here only, to be timed in
+# turns against the package's: one thread a word, a serial search for its
+# segment, per-thread reads of a by-value table of every level's pointer
+# (64 segments, 512 arrays: 11.8 KB of parameters), and a host table of
+# every level rebuilt on each call. It reads the same trees, level by level.
+OLD_OPENINGS_CU = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+namespace {
+constexpr int kThreads = 256;
+constexpr int kMaxSegs = 64;
+constexpr int kMaxArrays = 512;
+constexpr int kMaxAdds = 8;
+
+struct Seg {              // 14 words, all uint32 (the host's numpy layout)
+  uint32_t out;           // the segment's first word in the result
+  uint32_t first;         // its tree's values in the array table; levels follow
+  uint32_t path;          // 0: one word a slot; 1: depth·8 words a slot
+  uint32_t depth;
+  uint32_t n_idx;         // slots a query
+  uint32_t mask;
+  uint32_t add[kMaxAdds];
+};
+
+struct Array {            // 16 bytes (the host's numpy layout)
+  const uint32_t* ptr;    // (batch, 2^log_size[, 8]) whole, or a shard's block
+  uint32_t log_size;
+  uint32_t sharded;
+};
+
+struct OpenArgs {
+  const uint32_t* queries;  // (batch, q)
+  uint32_t* out;            // total words
+  uint32_t total;
+  int batch;
+  int q;
+  int n_segs;
+  int shard;                // -1: no mesh
+  Seg segs[kMaxSegs];
+  Array arrays[kMaxArrays];
+};
+
+__global__ void __launch_bounds__(kThreads) openings_kernel(const OpenArgs a) {
+  const uint32_t i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= a.total) return;
+  int s = 0;
+  while (s + 1 < a.n_segs && a.segs[s + 1].out <= i) ++s;
+  const uint32_t path = a.segs[s].path, n_idx = a.segs[s].n_idx, mask = a.segs[s].mask;
+  const uint32_t width = path ? a.segs[s].depth * 8u : 1u;  // words a slot
+  const uint32_t pos = i - a.segs[s].out;
+  const uint32_t per_proof = static_cast<uint32_t>(a.q) * n_idx * width;
+  const uint32_t b = pos / per_proof;
+  const uint32_t rem = pos - b * per_proof;
+  const uint32_t slot_all = rem / width;  // query · n_idx + slot
+  const uint32_t word = rem - slot_all * width;
+  const uint32_t qi = slot_all / n_idx;
+  const uint32_t slot = slot_all - qi * n_idx;
+  const uint32_t x = __ldg(a.queries + static_cast<int64_t>(b) * a.q + qi);
+  uint32_t idx = ((x & mask) + a.segs[s].add[slot]) & mask;
+  uint32_t col = 0;
+  uint32_t row_words = 1;
+  uint32_t k = a.segs[s].first;
+  if (path) {
+    const uint32_t level = word >> 3;
+    idx = (idx >> level) ^ 1u;
+    col = word & 7u;
+    row_words = 8;
+    k += 1 + level;
+  }
+  const uint32_t log_size = a.arrays[k].log_size, sharded = a.arrays[k].sharded;
+  const uint32_t size = 1u << log_size;
+  bool own = a.shard <= 0;
+  if (sharded) {
+    own = (idx >> log_size) == static_cast<uint32_t>(a.shard);
+    idx &= size - 1u;
+  }
+  uint32_t v = 0u;
+  if (own && idx < size) {
+    const int64_t at = (static_cast<int64_t>(sharded ? 0u : b) * size + idx) * row_words + col;
+    v = __ldg(a.arrays[k].ptr + at);
+  }
+  a.out[i] = v;
+}
+
+}  // namespace
+
+extern "C" int zk_openings(const uint32_t* queries, uint32_t* out, int64_t total, int batch,
+                           int q, int shard, const void* segs, int n_segs, const void* arrays,
+                           int n_arrays, cudaStream_t stream) {
+  if (total < 0 || total > 0x7fffffffLL || batch < 0 || q < 0 || n_segs < 1 ||
+      n_segs > kMaxSegs || n_arrays < 1 || n_arrays > kMaxArrays || shard < -1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (total > 0) {
+    OpenArgs a{};
+    a.queries = queries;
+    a.out = out;
+    a.total = static_cast<uint32_t>(total);
+    a.batch = batch;
+    a.q = q;
+    a.n_segs = n_segs;
+    a.shard = shard;
+    const Seg* sg = static_cast<const Seg*>(segs);
+    const Array* ar = static_cast<const Array*>(arrays);
+    for (int s = 0; s < n_segs; ++s) {
+      const Seg& g = sg[s];
+      if (g.n_idx < 1 || g.n_idx > kMaxAdds || g.first >= static_cast<uint32_t>(n_arrays) ||
+          (g.path && g.first + g.depth >= static_cast<uint32_t>(n_arrays))) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      a.segs[s] = g;
+    }
+    for (int k = 0; k < n_arrays; ++k) {
+      if (ar[k].log_size > 31) return static_cast<int>(cudaErrorInvalidValue);
+      a.arrays[k] = ar[k];
+    }
+    const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
+    openings_kernel<<<blocks, kThreads, 0, stream>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+OLD_OPENINGS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                                "old_openings")
+
+
+def build_old_openings() -> None:
+    """nvcc of `OLD_OPENINGS_CU` into build/old_openings (its own library)."""
+    from zkstark_tpu_torch.ops import _build
+
+    os.makedirs(OLD_OPENINGS_DIR, exist_ok=True)
+    src = os.path.join(OLD_OPENINGS_DIR, "openings_old.cu")
+    with open(src, "w") as f:
+        f.write(OLD_OPENINGS_CU)
+    subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+                    "-Xcompiler", "-fPIC", "-o", os.path.join(OLD_OPENINGS_DIR, "libold.so"), src],
+                   check=True, capture_output=True, text=True)
+
+
+class OldOpenings:
+    """The old wrapper: 14-word segment records (cached) and an (n, 2) table
+    of (pointer, log2 size) of every array, rebuilt on each call."""
+
+    MAX_ADDS = 8
+
+    def __init__(self):
+        import ctypes
+
+        self.lib = ctypes.CDLL(os.path.join(OLD_OPENINGS_DIR, "libold.so"))
+        p, i64, i = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        self.lib.zk_openings.argtypes = [p, p, i64, i, i, i, p, i, p, i, p]
+        self.lib.zk_openings.restype = ctypes.c_int
+        self.launches = 0
+        self._segs = {}
+
+    def segment_table(self, segments, lead, q, lengths):
+        key = (segments, lead, q, lengths)
+        if key not in self._segs:
+            firsts = np.cumsum((0,) + lengths[:-1]).tolist()
+            segs, total = [], 0
+            for tree, path, mask, adds in segments:
+                depth = lengths[tree] - 1
+                words = int(np.prod(lead)) * q * len(adds) * (8 * depth if path else 1)
+                if words:
+                    segs.append([total, firsts[tree], int(path), depth if path else 0, len(adds),
+                                 mask & 0xFFFFFFFF, *adds, *[0] * (self.MAX_ADDS - len(adds))])
+                total += words
+            self._segs[key] = (np.asarray(segs, dtype=np.uint32).reshape(-1, 14), total)
+        return self._segs[key]
+
+    @staticmethod
+    def array_table(trees, lead, card):
+        ptrs, words = [], []
+        for tree in trees:  # whole trees that halve level by level: one shape comparison
+            size = tree[0].shape[-1]
+            shapes = [lead + (size,)] + [lead + (size >> k, 8) for k in range(len(tree) - 1)]
+            if ([a.shape for a in tree] != shapes
+                    or not all(a.dtype is torch.uint32 and a.get_device() == card
+                               and a.is_contiguous() for a in tree)):
+                raise ValueError("old openings: a tree that does not halve")
+            ptrs += [a.data_ptr() for a in tree]
+            words += [size.bit_length() - 1] + [size.bit_length() - 1 - k
+                                                 for k in range(len(tree) - 1)]
+        table = np.empty((len(ptrs), 2), dtype=np.uint64)
+        table[:, 0], table[:, 1] = ptrs, words
+        return table
+
+    def __call__(self, queries, trees, segments):
+        lead, q = tuple(queries.shape[:-1]), queries.shape[-1]
+        segs, total = self.segment_table(segments, lead, q, tuple(len(t) for t in trees))
+        table = self.array_table(trees, lead, queries.get_device())
+        out = torch.empty(total, dtype=torch.uint32, device=queries.device)
+        rc = self.lib.zk_openings(queries.data_ptr(), out.data_ptr(), total,
+                                  int(np.prod(lead)), q, -1, segs.ctypes.data, len(segs),
+                                  table.ctypes.data, len(table),
+                                  torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"old openings: CUDA error {rc}")
+        self.launches += 1
+        return out
+
+
+def old_segments(segments) -> tuple:
+    """The package's opening segments in the old design's form."""
+    from zkstark_tpu_torch.ops import openings as open_op
+
+    return tuple((g.tree, g.kind == open_op.PATHS, g.mask, g.adds) for g in segments)
 
 
 def say(*parts):
@@ -351,15 +581,17 @@ def phase1_build():
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         nvcc = pool.submit(timed, _build.kernels)
         cxx = pool.submit(timed, native.native)
-        nvcc_s, cxx_s = nvcc.result(), cxx.result()
+        old = pool.submit(timed, build_old_openings)  # phase 3's A/B of the openings design
+        nvcc_s, cxx_s, old_s = nvcc.result(), cxx.result(), old.result()
     wall = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in _build.build_log.splitlines() if "Used" in ln or "spill" in ln]
     for ln in ptxas:
         say("phase1 ptxas", ln)
-    say(f"phase1 build nvcc_s={nvcc_s:.3f} cxx_verifier_s={cxx_s:.3f} wall_s={wall:.3f}")
+    say(f"phase1 build nvcc_s={nvcc_s:.3f} cxx_verifier_s={cxx_s:.3f} "
+        f"old_openings_nvcc_s={old_s:.3f} wall_s={wall:.3f}")
 
 
 def phase2_fp():
@@ -407,15 +639,42 @@ def phase2_fp():
                 raise AssertionError(f"fp.cuh wrong at a={x} b={y} p={p}")
             checked += 1
         say(f"phase2 fp.cuh p={p} pairs={n} exact_checked={checked} ok")
-    # the field module's device functions (plain torch on the card, no kernel
-    # of their own: the JAX package's are jnp) at the size of the 2^20 domain
-    base = fp.subgroup_generator(1 << 20)
-    for name, fn in (("device_powers", lambda dev: fp.device_powers(base, 1 << 20, device=dev)),
-                     ("powers_iota", lambda dev: fp.powers_iota(base, 1 << 20, 7, device=dev))):
-        if max_abs_err(fn("cuda").cpu(), fn("cpu")):
-            raise AssertionError(f"fp.{name} on the card differs from the CPU")
-        say(f"phase2 field {name} n=2^20 ==cpu ms={cuda_ms(lambda: fn('cuda'), 10):.4f} "
-            f"(plain torch launches, no kernel of its own)")
+    return phase2_field_methods()
+
+
+def phase2_field_methods() -> dict:
+    """The `Field` methods on the card against the CPU, each prime: the
+    device ops on random words, then `device_powers` and `powers_iota` at
+    the size of the 2^20 domain, through the `powers` kernel. This is the
+    main-path run of `powers`, whose launches are counted."""
+    from zkstark_tpu_torch import ops
+    from zkstark_tpu_torch.field import fp
+
+    rng = np.random.default_rng(17)
+    ops.reset_launch_counts()
+    for fld in (fp.FIELD101, fp.FIELD_ALT):
+        a, b = (fld.host_to_mont(rng.integers(0, fld.p, 1 << 16, dtype=np.uint64))
+                for _ in range(2))
+        for dev in ("cuda", "cpu"):
+            ta, tb = fp.from_host(a, dev), fp.from_host(b, dev)
+            got = [fld.mont_mul(ta, tb), fld.add(ta, tb), fld.sub(ta, tb), fld.neg(ta),
+                   fld.to_mont(ta), fld.from_mont(ta), fld.pow_static(ta, 5), fld.inv(ta)]
+            if dev == "cuda":
+                on_card = [fp.to_host(t) for t in got]
+        if any(not np.array_equal(x, fp.to_host(y)) for x, y in zip(on_card, got)):
+            raise AssertionError(f"a Field method on the card differs from the CPU, p={fld.p}")
+        base = fld.subgroup_generator(1 << 20)
+        for name, fn in (("device_powers", lambda dev: fld.device_powers(base, 1 << 20, dev)),
+                         ("powers_iota", lambda dev: fld.powers_iota(base, 1 << 20, 7, dev))):
+            got = fn("cuda")
+            if got.device.type != "cuda" or max_abs_err(got.cpu(), fn("cpu")):
+                raise AssertionError(f"Field.{name} on the card differs from the CPU, p={fld.p}")
+        say(f"phase2 Field methods p={fld.p}: mont_mul add sub neg to_mont from_mont pow_static "
+            f"inv device_powers powers_iota on the card == cpu, tol=0")
+    counts = ops.launch_counts()
+    require_launched(counts, ("powers",), "Field.device_powers / Field.powers_iota")
+    say(f"phase2 Field methods launches={json.dumps({'powers': counts['powers']})}")
+    return counts
 
 
 def _compare(name: str, label: str, kernel, plain, limit: dict, iters=20, library=None) -> dict:
@@ -561,7 +820,8 @@ def phase3_kernels() -> dict:
     rows.update(phase3_serial_kernels(rows["fs_chain"]))
     rows.update(phase3_limb_and_composition())
     rows.update(phase3_glue_kernels())
-    rows["openings"].update(phase3_launch_floor(rows["openings"]))
+    rows["powers"] = phase3_powers()
+    rows["openings"].update(phase3_launch_floor(rows["openings"], rows["powers"]))
     phase3_shard_contracts()
     phase3_lde()
     return rows
@@ -1054,17 +1314,22 @@ def phase3_limb_and_composition() -> dict:
 
 def _random_trees(gen: torch.Generator, lead: tuple, sizes) -> tuple:
     """Random values lead + (n,) and digest levels lead + (k, 8), k = n … 1,
-    for each tree size n, made on the card from `gen`: (values, levels)."""
+    for each tree size n, made on the card from `gen`, the levels of a tree
+    in one allocation (`merkle.Levels`): (values, levels)."""
     from zkstark_tpu_torch.field import fp
+    from zkstark_tpu_torch.hash import merkle
 
     def u32(shape):
         return fp.narrow(torch.randint(0, 1 << 32, shape, generator=gen, dtype=torch.int64,
                                        device="cuda"))
 
+    bsz = int(np.prod(lead))
     values, levels = [], []
     for n in sizes:
         values.append(u32(lead + (n,)))
-        levels.append([u32(lead + (n >> k, 8)) for k in range(n.bit_length())])
+        buf = u32((merkle.level_offset(n, n.bit_length(), bsz),))
+        views = merkle._level_views(buf, bsz, n)
+        levels.append(merkle.Levels([v.view(lead + v.shape[1:]) for v in views], buf))
     return values, levels
 
 
@@ -1140,61 +1405,183 @@ def phase3_glue_kernels() -> dict:
             bound(4 * cfg.n_constraints * d, d * (2 * FP_MUL + ops)), "constants_kernel")
         torch.cuda.empty_cache()
 
-    # openings: one stark-101 proof (the main path), a batch of 32, one proof
-    # at 2^24, and shard 3 of 8 at 2^24; each word of the
-    # result read once and written once (and the queries), the index rule a
-    # word (an and, an add, an and, a shift, an xor)
+    rows["openings"] = phase3_openings(gen, rng)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase3_openings(gen, rng) -> dict:
+    """`openings` at the prove path's shapes against its plain twin: the
+    fused core's whole packed result (its launch on the main path) and the
+    openings alone, for one stark-101 proof, a batch of 32, one proof at
+    2^24 and shard 3 of 8 at 2^24; each word of the result read once and
+    written once (and the queries), the index rule a word (an and, an add, an
+    and, a shift, an xor). At stark-101: the wrapper's host time (mean of 50
+    calls), the parameter block's bytes, and the A/B against the design it
+    replaced (`OldOpenings`, kept in this script) in turns, device and host
+    times. Returns the table's row: the packed result at stark-101."""
+    from zkstark_tpu_torch.field import fp
+    from zkstark_tpu_torch.ops import openings as open_op
+    from zkstark_tpu_torch.parallel.merkle_sharded import shard_tree
+    from zkstark_tpu_torch.protocol import fused, openings
+    from zkstark_tpu_torch.protocol.config import STARK101
+
+    table = None
     cases = ((STARK101, (1,), None), (STARK101, (32,), None),
              (_square_chain_cfg(BIG_TRACE_BITS, BIG_SECRET), (1,), None),
              (_square_chain_cfg(BIG_TRACE_BITS, BIG_SECRET), (1,), 8))
     for cfg, lead, shards in cases:
-        d = cfg.eval_domain
+        d, q, bsz = cfg.eval_domain, cfg.n_queries, lead[0]
         values, levels = _random_trees(gen, lead, [d] + [d >> k for k in range(cfg.fri_rounds + 1)])
-        q = cfg.n_queries
         idx = fp.from_host(rng.integers(0, cfg.query_range, lead + (q,), dtype=np.uint64)
                            .astype(np.uint32), "cuda")
+        # the chain's draws: alphas, betas, then the queries (openings.draw_columns)
+        draws = fp.from_host(np.concatenate(
+            [rng.integers(0, 1 << 32, (bsz, cfg.n_constraints + cfg.fri_rounds), dtype=np.uint64)
+             .astype(np.uint32), fp.to_host(idx)], axis=1), "cuda")
+        qcol = openings.draw_columns(cfg)[2][0]
         args = [values[0], levels[0], values[1:], levels[1:]]
         kw = {}
-        if shards:  # the arrays of at least `shards` words or rows as shard 3's block
-            def block(a):
-                k = a.shape[1] // shards
-                return a if k < 1 else [a[0, t * k : (t + 1) * k].clone() for t in range(shards)]
-
-            args = [block(args[0]), [block(v) for v in args[1]], [block(v) for v in args[2]],
-                    [[block(v) for v in lv] for lv in args[3]]]
+        if shards:  # the trees of at least `shards` leaves as shard 3 holds them
+            sh = [shard_tree(v, lv, shards) for v, lv in zip(values, levels)]
+            args = [sh[0][0], sh[0][1], [t[0] for t in sh[1:]], [t[1] for t in sh[1:]]]
             kw = dict(shard=3, block=3)
-        segs = openings.segments(cfg)
-        trees = openings._trees(cfg, *args)
-        words = sum(open_op.segment_words(g, trees, lead, q) for g in segs)
-        label = (f"{cfg.air.name} d=2^{d.bit_length() - 1} B={lead[0]} q={q} words={words}"
+        trees = openings.trees(*args, block=3 if shards else None)
+        shard = 3 if shards else None
+        label = (f"{cfg.air.name} d=2^{d.bit_length() - 1} B={bsz} q={q}"
                  + (f" shard 3/{shards}" if shards else ""))
-        want = openings.sparse_openings_packed(cfg, *args, idx, **kw)
-        if shards:  # shard 3's words are the solo result's where it owns them
-            solo = openings.sparse_openings_packed(cfg, values[0], levels[0], values[1:],
-                                                   levels[1:], idx)
-            mask = fp.as_i32(want) != 0
-            if (fp.as_i32(want)[mask] != fp.as_i32(solo)[mask]).any():
-                raise AssertionError(f"openings {label}: a word differs from the solo result")
-        row("openings", label, lambda: openings.sparse_openings_packed(cfg, *args, idx, **kw),
-            lambda: open_op.openings_plain(idx, trees if not shards else [
-                [open_op.Block(a[3]) if isinstance(a, list) else a for a in t] for t in trees],
-                segs, 3 if shards else None),
-            bound(8 * words + 4 * lead[0] * q, 5 * words), "openings_kernel")
-        # the wrapper's host part apart from its launch: the parameters it
-        # builds in every prove (segments cached, the pointer table not)
-        shard_trees = trees if not shards else [
-            [open_op.Block(a[3]) if isinstance(a, list) else a for a in t] for t in trees]
-        describe = lambda: open_op.describe(idx, shard_trees, segs, 3 if shards else None)  # noqa: E731
-        describe()
+        for what, segs, fn, srcs, qs in (
+                ("packed", openings.packed_segments(cfg),
+                 lambda: openings.packed_result(cfg, *args, draws, **kw), (draws,),
+                 draws[:, qcol:]),
+                ("openings", openings.segments(cfg),
+                 lambda: openings.sparse_openings_packed(cfg, *args, idx, **kw), (), idx)):
+            plan = open_op.describe(segs, lead, q, bool(shards), open_op._collect(qs, trees, srcs)[0])
+            words = plan.total
+            if shards:  # shard 3's words are the solo result's where it owns them
+                solo = (openings.packed_result(cfg, values[0], levels[0], values[1:], levels[1:],
+                                               draws) if what == "packed" else
+                        openings.sparse_openings_packed(cfg, values[0], levels[0], values[1:],
+                                                        levels[1:], idx))
+                got = fp.as_i32(fn())
+                mask = got != 0
+                if (got[mask] != fp.as_i32(solo)[mask]).any():
+                    raise AssertionError(f"openings {label}: a word differs from the solo result")
+            r = _compare("openings", f"{what} {label} words={words}", fn,
+                         lambda: open_op.openings_plain(qs, trees, segs, shard, srcs),
+                         bound(8 * words + 4 * bsz * q, 5 * words))
+            dev_ms = device_ms(fn, "openings_kernel", 20, required=table is None)
+            say(f"phase3 openings {what} {label} {_device_line(dev_ms, r['ms'], r)} "
+                f"param_block_bytes={plan.block_bytes} param_words={len(plan.words)} "
+                f"segments={plan.n_segs} library=none")
+            if table is None:
+                table = dict(r, wrapper_ms=r["ms"])
+        del values, levels, args, trees, draws
+    # the table's row: the kernel on the fused core's own arguments
+    table.update(_openings_host_and_ab())
+    return table
+
+
+def _openings_host_and_ab() -> dict:
+    """At stark-101, on the arguments a fused prove's core passes `openings`
+    (captured from one `fused_core_packed`: the trees in one allocation each,
+    the queries a column of the draws): the kernel's profiled device time;
+    the wrapper's host time (mean of 50 calls, host clock, no wait between
+    them) of the packed result and of the openings alone; and the openings
+    alone against the old design in turns (new, old, old, new), device time
+    (profiled, 20 calls a turn) and host time (50 calls), on the same trees,
+    level by level for the old design."""
+    from zkstark_tpu_torch.field import fp
+    from zkstark_tpu_torch.hash import merkle
+    from zkstark_tpu_torch.ops import openings as open_op
+    from zkstark_tpu_torch.protocol import STARK101, STARK101_SECRET, fused, openings
+    from zkstark_tpu_torch.protocol import prover as pr
+
+    cfg = STARK101
+    seen, wrapper = [], open_op.openings
+
+    def spy(*args):
+        seen.append(args)
+        return wrapper(*args)
+
+    trace = pr.trace_to_device(cfg, STARK101_SECRET, torch.device("cuda"))
+    open_op.openings = spy
+    try:
+        fused.fused_core_packed(cfg, trace)
+    finally:
+        open_op.openings = wrapper
+    queries, trees, packed_segs, shard, sources = seen[-1]
+
+    def host_ms(fn, calls=50):
+        fn()
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(50):
-            describe()
-        say(f"phase3 openings {label} arrays={len(describe()[1])} "
-            f"describe_ms={(time.perf_counter() - t0) / 50 * 1e3:.4f} (host, the pointer table "
-            f"and the cached segments)")
-        del values, levels, args, trees, shard_trees
-    torch.cuda.empty_cache()
-    return rows
+        for _ in range(calls):
+            fn()
+        ms = (time.perf_counter() - t0) / calls * 1e3
+        torch.cuda.synchronize()
+        return ms
+
+    open_segs = openings.segments(cfg)
+    idx = fp.as_u32(fp.as_i32(queries).contiguous())
+    new = {"packed": lambda: open_op.openings(queries, trees, packed_segs, shard, sources),
+           "openings": lambda: open_op.openings(idx, trees, open_segs)}
+    if max_abs_err(new["packed"](), open_op.openings_plain(queries, trees, packed_segs, shard,
+                                                          sources)):
+        raise AssertionError("openings: the fused core's call differs from its plain twin")
+    old = OldOpenings()
+    old_trees = []
+    for t in trees[: cfg.fri_rounds + 1]:  # the old design's arrays: the same words
+        n = 1 << t.log_n
+        views = merkle._level_views(t.levels[merkle.values_words(1, n):], 1, n)
+        old_trees.append([t.levels[:n].view(1, n), *views[:-1]])
+    old_segs = old_segments(open_segs)
+    old_fn = lambda: old(idx, old_trees, old_segs)  # noqa: E731
+    if max_abs_err(old_fn(), new["openings"]()):
+        raise AssertionError("openings: the old design's words differ from the new one's")
+    dev_ms = device_ms(new["packed"], "openings_kernel", 50)
+    host = {k: host_ms(fn) for k, fn in new.items()}
+    turns = {"new": [], "old": []}
+    for which in ("new", "old", "old", "new"):
+        fn = new["openings"] if which == "new" else old_fn
+        turns[which].append((device_ms(fn, "openings_kernel", 20), host_ms(fn)))
+    plan = open_op.describe(packed_segs, (1,), cfg.n_queries, False,
+                            open_op._collect(queries, trees, sources)[0])
+    say(f"phase3 openings stark-101 fused core's call: device_ms={dev_ms:.5f} "
+        f"wrapper host_ms packed={host['packed']:.5f} openings={host['openings']:.5f} "
+        f"(ops.openings, mean of 50 calls) param_block_bytes={plan.block_bytes} "
+        f"param_words={len(plan.words)} trees={len(trees)} "
+        f"in_one_allocation={sum(t.values is None for t in trees)} sources={len(sources)}")
+    say("phase3 openings stark-101 A/B in turns new,old,old,new (openings alone): device_ms="
+        + ",".join(f"{turns[w][i][0]:.5f}" for w, i in (("new", 0), ("old", 0), ("old", 1),
+                                                        ("new", 1)))
+        + " host_ms="
+        + ",".join(f"{turns[w][i][1]:.5f}" for w, i in (("new", 0), ("old", 0), ("old", 1),
+                                                        ("new", 1)))
+        + f" old param bytes={4 * (8 + 64 * 14) + 16 * 512}")
+    return dict(ms=dev_ms, wrapper_host_ms=host["packed"], wrapper_host_ms_openings=host["openings"],
+                param_block_bytes=plan.block_bytes,
+                old_device_ms=[t[0] for t in turns["old"]], new_device_ms=[t[0] for t in turns["new"]],
+                old_host_ms=[t[1] for t in turns["old"]], new_host_ms=[t[1] for t in turns["new"]])
+
+
+def phase3_powers() -> dict:
+    """`powers` (`Field.powers_iota` / `device_powers` on a card) against
+    its plain twin at n = 2^20, timed on the device (profiled, the launch
+    being a few microseconds) beside the wrapper's CUDA-event time; bound:
+    4 bytes written and one product a word."""
+    from zkstark_tpu_torch.field import fp
+    from zkstark_tpu_torch.ops import powers
+
+    fld, n = fp.FIELD101, 1 << 20
+    base = fld.subgroup_generator(n)
+    limit = bound(4 * n, FP_MUL * n)
+    fn = lambda: powers.powers(fld, base, n, 7, "cuda")  # noqa: E731
+    r = _compare("powers", "n=2^20", fn, lambda: powers.powers_plain(fld, base, n, 7, "cuda"),
+                 limit)
+    dev_ms = device_ms(fn, "powers_kernel", 20)
+    say(f"phase3 powers n=2^20 {_device_line(dev_ms, r['ms'], limit)} library=none")
+    return dict(r, ms=dev_ms, wrapper_ms=r["ms"])
 
 
 def _device_line(dev_ms: float | None, wrapper_ms: float, limit: dict) -> str:
@@ -1304,7 +1691,7 @@ def phase3_shard_contracts() -> None:
 OWN_KERNELS = ("ntt_rows_kernel", "transpose_kernel", "transpose_blocks_kernel", "ntt_rows_pease_kernel", "sha256_leaf",
                "sha256_node", "sha256_tree_tail", "fs_chain_kernel", "fri_fold_kernel", "limb_dft_rows_kernel",
                "composition_kernel", "openings_kernel", "endpoint_fix_kernel", "from_mont_kernel",
-               "constants_kernel")
+               "constants_kernel", "powers_kernel")
 
 
 def _own_kernels_only(fn, what: str, own: str) -> dict:
@@ -1643,9 +2030,10 @@ def _guarded_core(cfg, secret: int, mesh=None):
     return pr.finish_fused(cfg, fused.unpack_out(cfg, pending.wait()))
 
 
-def _device_busy(fn) -> dict:
+def _device_busy(fn, copies: bool = False) -> dict:
     """One call of `fn` under torch.profiler: wall seconds, the device's busy
-    seconds (the sum of its kernels and copies) and their count."""
+    seconds (the sum of its kernels and copies) and their count; with
+    `copies`, also [name, bytes] of each device copy (`_copy_sizes`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1661,10 +2049,46 @@ def _device_busy(fn) -> dict:
     spans = [e.time_range.elapsed_us() for e in events]
     own = [e.time_range.elapsed_us() for e in events if any(k in e.name for k in OWN_KERNELS)]
     busy = sum(spans) / 1e6
-    return dict(wall_s=round(wall, 5), device_busy_s=round(busy, 5), device_spans=len(spans),
-                idle_share=round(1 - busy / wall, 4), own_kernel_spans=len(own),
-                own_kernel_busy_s=round(sum(own) / 1e6, 6), plain_torch_spans=len(spans) - len(own),
-                plain_torch_busy_s=round((sum(spans) - sum(own)) / 1e6, 6))
+    others = dict(Counter(e.name for e in events if not any(k in e.name for k in OWN_KERNELS)))
+    out = dict(wall_s=round(wall, 5), device_busy_s=round(busy, 5), device_spans=len(spans),
+               idle_share=round(1 - busy / wall, 4), own_kernel_spans=len(own),
+               own_kernel_busy_s=round(sum(own) / 1e6, 6), plain_torch_spans=len(spans) - len(own),
+               plain_torch_busy_s=round((sum(spans) - sum(own)) / 1e6, 6), other_spans=others)
+    if copies:
+        out["copies"] = _copy_sizes(prof)
+    return out
+
+
+def _copy_sizes(prof) -> list:
+    """[name, bytes] of every device copy of a profile, read from its
+    exported trace (the profiler's events carry no sizes); bytes -1 where
+    the trace gives none."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"copies_{os.getpid()}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    try:
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    return [[e["name"], int(e.get("args", {}).get("bytes", -1))] for e in events
+            if e.get("cat") == "gpu_memcpy"]
+
+
+def require_only_io_copies(busy: dict, trace_bytes: int, packed_bytes: int, what: str) -> None:
+    """Raises unless every device span of `busy` that is not the port's
+    kernel is one of the fused path's two copies, each at most once: the
+    witness's upload (host to device, `trace_bytes`) and the packed result's
+    fetch (device to host, `packed_bytes`)."""
+    allowed = dict(zip(COPY_SPANS, (trace_bytes, packed_bytes)))
+    copies = busy["copies"]
+    stray = [c for c in copies
+             if not any(c[0].startswith(k) and c[1] == size for k, size in allowed.items())]
+    if (stray or sum(busy["other_spans"].values()) != len(copies)
+            or any(sum(c[0].startswith(k) for c in copies) > 1 for k in allowed)):
+        raise AssertionError(f"plain-torch device spans in {what}: {busy['other_spans']}, "
+                             f"copies {copies}; allowed: at most one each of {allowed} (bytes)")
 
 
 def _plain_loops(cfg, secret: int) -> dict:
@@ -1678,7 +2102,7 @@ def _plain_loops(cfg, secret: int) -> dict:
     each group launches no plain torch."""
     from zkstark_tpu_torch import ntt
     from zkstark_tpu_torch.field import fp
-    from zkstark_tpu_torch.parallel import pipeline
+    from zkstark_tpu_torch.ops import elementwise
     from zkstark_tpu_torch.protocol import air, openings
     from zkstark_tpu_torch.protocol import prover as pr
 
@@ -1692,7 +2116,7 @@ def _plain_loops(cfg, secret: int) -> dict:
     levels = [t.levels for t in art.layer_trees]
     groups = {
         "interpolate_rank1_fix": lambda: air.interpolate_trace(trace, cfg.trace_domain, fld),
-        "from_mont_f_eval": lambda: pipeline.from_mont(cfg, f_eval),
+        "from_mont_f_eval": lambda: elementwise.from_mont(f_eval, fld),
         "opening_gathers": lambda: openings.sparse_openings_device(
             cfg, art.f_res, art.f_tree.levels, art.layer_res, levels, idx),
     }
@@ -1727,6 +2151,46 @@ def _plain_loops(cfg, secret: int) -> dict:
     return out
 
 
+def _paths_in_turns(cfg, secret: int, want, repeats: int, what: str) -> dict:
+    """`prove()` (fused) and `prove(fused=False)` in turns (fused, host-synced,
+    host-synced, fused, …), `repeats` warm proves each: the median, least and
+    largest wall seconds of each path; then `repeats` more of each in turns
+    with `timings`, whose spans wait for the device: the median of each span.
+    Every proof must be `want`."""
+    from zkstark_tpu_torch import prove
+
+    def one(fused: bool, timings=None) -> float:
+        t0 = time.perf_counter()
+        got = prove(cfg, secret, device="cuda", fused=fused, timings=timings)
+        torch.cuda.synchronize()
+        if got != want:
+            raise AssertionError(f"{what}: a proof changed between runs")
+        return time.perf_counter() - t0
+
+    order = [k % 4 in (0, 3) for k in range(2 * repeats)]  # fused, host, host, fused, …
+    walls = {True: [], False: []}
+    for fused in order:
+        walls[fused].append(one(fused))
+    spans = {True: {}, False: {}}
+    for fused in order:
+        t = {}
+        one(fused, t)
+        for k, v in t.items():
+            spans[fused].setdefault(k, []).append(v)
+    out = {}
+    for fused, name in ((True, "fused"), (False, "host_synced")):
+        w = sorted(walls[fused])
+        out[name] = dict(median_s=float(np.median(w)), min_s=w[0], max_s=w[-1], n=len(w),
+                         span_median_s={k: float(np.median(v)) for k, v in spans[fused].items()})
+    say(f"{what} fused vs host-synced in turns, {repeats} each: "
+        + " ".join(f"{k} median_s={v['median_s']:.6f} min_s={v['min_s']:.6f} "
+                   f"max_s={v['max_s']:.6f} spans_median_s="
+                   f"{json.dumps({a: round(b, 6) for a, b in v['span_median_s'].items()})}"
+                   for k, v in out.items())
+        + f" fused/host_synced={out['fused']['median_s'] / out['host_synced']['median_s']:.3f}")
+    return out
+
+
 def _warm_min(fn, want, repeats: int, what: str) -> float:
     """The least wall seconds of `repeats` calls of `fn`, each of which must
     return `want`."""
@@ -1746,6 +2210,7 @@ def phase9_fused_solo() -> dict:
     first fused prove, the main path's run that drives the glue kernels."""
     from zkstark_tpu_torch import STARK101, STARK101_SECRET, ops, prove, verify
     from zkstark_tpu_torch.native import verify_native
+    from zkstark_tpu_torch.protocol import fused
     from zkstark_tpu_torch.protocol import prover as pr
 
     legacy = prove(STARK101, STARK101_SECRET, device="cuda", fused=False)
@@ -1766,15 +2231,20 @@ def phase9_fused_solo() -> dict:
     tree_launches = require_few_tree_launches(counts, "fused stark-101")
     if _guarded_core(STARK101, STARK101_SECRET) != proof:
         raise AssertionError("fused stark-101 under the sync debug mode differs")
-    fused_s = _warm_min(lambda: prove(STARK101, STARK101_SECRET, device="cuda"), proof, 5, "fused")
-    legacy_s = _warm_min(lambda: prove(STARK101, STARK101_SECRET, device="cuda", fused=False),
-                         proof, 5, "host-synced")
+    turns = _paths_in_turns(STARK101, STARK101_SECRET, proof, 7, "phase9 stark101")
+    fused_s, legacy_s = turns["fused"]["min_s"], turns["host_synced"]["min_s"]
     timings = {}
     prove(STARK101, STARK101_SECRET, device="cuda", timings=timings)
-    busy = _device_busy(lambda: prove(STARK101, STARK101_SECRET, device="cuda"))
+    busy = _device_busy(lambda: prove(STARK101, STARK101_SECRET, device="cuda"), copies=True)
     if busy["device_spans"] > MAX_STARK101_SPANS:
         raise AssertionError(f"a stark-101 fused prove made {busy['device_spans']} device spans, "
                              f"want <= {MAX_STARK101_SPANS}: {busy}")
+    # no plain torch left: besides the port's kernels, the witness's upload
+    # and the packed result's fetch, one copy each of their sizes
+    trace_bytes = 4 * pr.trace_to_device(STARK101, STARK101_SECRET, "cuda").numel()
+    packed_bytes = 4 * sum(math.prod(s) for shape in fused.out_shapes(STARK101).values()
+                           for s in (shape if isinstance(shape, list) else [shape]))
+    require_only_io_copies(busy, trace_bytes, packed_bytes, "a stark-101 fused prove")
     say(
         f"phase9 stark101 fused golden bytes={len(proof.data)} fused==host_synced verify=ok "
         f"native=ok sync_debug_mode=error:ok launches={json.dumps(counts)} "
@@ -1900,7 +2370,8 @@ def phase11_pipelined(cfg24, proof24, host_synced_warm_s: float) -> dict:
         raise AssertionError("2^24: the fused proof under the sync debug mode differs")
     spans = {}
     prove(cfg24, BIG_SECRET, device="cuda", timings=spans)
-    solo = _warm_min(lambda: prove(cfg24, BIG_SECRET, device="cuda"), proof24, 2, "fused 2^24")
+    turns = _paths_in_turns(cfg24, BIG_SECRET, proof24, 5, "phase11 2^24")
+    solo = turns["fused"]["min_s"]
     busy = _device_busy(lambda: prove(cfg24, BIG_SECRET, device="cuda"))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2002,7 +2473,9 @@ def sharded_bytes(cfg, shards: int) -> dict:
     all_to_alls of the LDE; one gather of the S subtree roots a sharded tree;
     the layer gathered where a fold falls back to one device (m/2 < S), or
     else the last layer for the free term; the composition's halo and one
-    exchange of the layer a sharded fold; the packed openings replicated."""
+    exchange of the layer a sharded fold; the packed result replicated."""
+    from zkstark_tpu_torch.protocol.fused import out_shapes
+
     d, word, s = cfg.eval_domain, 4, shards
     reach = max(cfg.air.shifts) * cfg.blowup
     out = {"all_to_all": 3 * d * word * (s - 1) // s, "all_gather": 0,
@@ -2020,10 +2493,9 @@ def sharded_bytes(cfg, shards: int) -> dict:
     if sharded:
         out["all_gather"] += word * m * (s - 1)
     out["all_gather"] += trees * 32 * s * (s - 1)
-    depth, shifts = d.bit_length() - 1, len(cfg.air.shifts)
-    per_query = (shifts * (1 + 8 * depth) + 1 + 8 * depth
-                 + sum(2 + 2 * 8 * (depth - layer) for layer in range(cfg.fri_rounds)))
-    out["replicate"] = word * cfg.n_queries * per_query * s * (s - 1)
+    packed = sum(int(np.prod(v)) for leaf in out_shapes(cfg).values()
+                 for v in (leaf if isinstance(leaf, list) else [leaf]))
+    out["replicate"] = word * packed * s * (s - 1)
     return out
 
 
@@ -2192,7 +2664,7 @@ def phase14_scaling_bench() -> list:
     return records
 
 
-def phase3_launch_floor(openings_row: dict) -> dict:
+def phase3_launch_floor(openings_row: dict, powers_row: dict) -> dict:
     """The two rows whose numbers timed the host: the device time of an
     empty kernel launched through `_build` (the launch floor, the mean of
     50 profiled launches), `openings`' device time against it, and the small
@@ -2209,8 +2681,13 @@ def phase3_launch_floor(openings_row: dict) -> dict:
 
     floor_ms = device_ms(empty, "empty_kernel", 50)
     say(f"phase3 launch floor: empty_kernel device_ms={floor_ms:.5f} (mean of 50 profiled launches)")
-    say(f"phase3 openings stark-101 device_ms={openings_row['ms']:.5f} against the launch floor "
-        f"{floor_ms:.5f}: share={floor_ms / openings_row['ms']:.3f}")
+    share = floor_ms / openings_row["ms"]
+    say(f"phase3 openings stark-101 device_ms={openings_row['ms']!r} against the launch floor "
+        f"{floor_ms!r}: share={share!r} (unrounded; at most 2x the floor is a share >= 0.5: "
+        f"{'met' if share >= 0.5 else 'not met'} in this run)")
+    say(f"phase3 powers n=2^20 device_ms={powers_row['ms']:.5f} against the launch floor "
+        f"{floor_ms:.5f}: {powers_row['ms'] / floor_ms:.2f}x the floor, "
+        f"{powers_row['bound_ms'] / powers_row['ms']:.3f} of its bytes bound")
     rng = np.random.default_rng(40)
     for bsz, r_, c_ in ((16, 128, 1024), (16, 1024, 1024)):
         x = fp.from_host(rng.integers(0, 1 << 32, (bsz, r_ * c_), dtype=np.uint64)
@@ -2403,7 +2880,7 @@ def main():
     # Pease route on for its CLI subprocess and for one timed prove
     os.environ.pop("ZKSTARK_PEASE", None)
     phase1_build()
-    phase2_fp()
+    field_launches = phase2_fp()
     rows = phase3_kernels()
     plane_rows, plane_launches = phase15_planes()
     rows.update(plane_rows)
@@ -2433,6 +2910,7 @@ def main():
         launches[name] = main_launches[name]
     for name in PLANE_KERNELS:
         launches[name] = plane_launches[name]
+    launches["powers"] = field_launches["powers"]
     kernels = [
         {
             "name": name,
@@ -2450,7 +2928,8 @@ def main():
             "launches_prove_big_2e27": giant_launches[name],
             "launches_sharded_2e24_s8": sharded_launches[name],
             "launches_fused_stark101": main_launches[name],
-            **({"launch_floor_ms": rows[name]["launch_floor_ms"]} if name == "openings" else {}),
+            **({k: rows[name][k] for k in ("launch_floor_ms", "wrapper_host_ms",
+                                            "param_block_bytes")} if name == "openings" else {}),
         }
         for name in SRC
     ]

@@ -321,6 +321,21 @@ def test_fs_chain_strided_digest(dev):
         _eq(g, w_)
 
 
+def test_fs_chain_strided_word_and_draws(dev):
+    """The free term is read in place, word 0 of each row of the last
+    layer, and the draws land in a column of the packed result's betas."""
+    state, _, _ = _chain_inputs((5,), 4, dev)
+    last = fp.from_host(_u32((5, 16), 10), dev)
+    betas = fp.from_host(_u32((5, 3), 11), dev)
+    want_betas = betas.cpu().clone()
+    got = fs_chain.chain_step(state, word=last[:, 0], draws=1, draws_out=betas[:, 1:2])
+    want = fs_chain.chain_step_plain(state.cpu(), word=last[:, 0].cpu(), draws=1,
+                                     draws_out=want_betas[:, 1:2])
+    for g, w_ in zip(got[:3], want[:3]):
+        _eq(g, w_)
+    _eq(betas, want_betas)
+
+
 @FIELDS
 @pytest.mark.parametrize("batch", [1, 3, 64])
 @pytest.mark.parametrize("log_m", [1, 2, 3, 4, 5, 9, 13, 16, 20])
@@ -895,7 +910,9 @@ def test_constants_kernel(dev, air_name, field, blowup, trace_len):
 @pytest.mark.parametrize("q", [1, 3])
 @pytest.mark.parametrize("bsz", [0, 1, 3], ids=["solo", "B1", "B3"])
 def test_openings_kernel(dev, q, bsz):
+    from zkstark_tpu_torch.hash import merkle
     from zkstark_tpu_torch.ops import openings as open_op
+    from zkstark_tpu_torch.parallel.merkle_sharded import shard_tree
     from zkstark_tpu_torch.protocol import openings
     from zkstark_tpu_torch.protocol.config import StarkConfig
 
@@ -905,8 +922,13 @@ def test_openings_kernel(dev, q, bsz):
 
     def tree(n):
         vals = fp.from_host(_u32(lead + (n,), next(seed)), dev)
-        return vals, [fp.from_host(_u32(lead + (n >> k, 8), next(seed)), dev)
-                      for k in range(n.bit_length())]
+        return vals, merkle.levels_from_host(
+            [_u32(lead + (n >> k, 8), next(seed)) for k in range(n.bit_length())], dev)
+
+    def cpu(x):
+        if isinstance(x, merkle.Levels):
+            return merkle.levels_from_host([fp.to_host(lv) for lv in x], "cpu")
+        return [cpu(t) for t in x] if isinstance(x, list) else x.cpu()
 
     f_res, f_levels = tree(cfg.eval_domain)
     layers = [tree(cfg.eval_domain >> k) for k in range(cfg.fri_rounds + 1)]
@@ -915,28 +937,42 @@ def test_openings_kernel(dev, q, bsz):
     idx = fp.from_host(rng.integers(0, cfg.query_range, lead + (q,), dtype=np.uint64)
                        .astype(np.uint32), dev)
     args = (cfg, f_res, f_levels, layer_res, layer_levels)
+    cpu_args = (cfg, cpu(f_res), cpu(f_levels), cpu(layer_res), [cpu(lv) for lv in layer_levels])
     before = open_op.openings_launches
     got = openings.sparse_openings_packed(*args, idx)
     assert open_op.openings_launches == before + 1
-    def cpu(x):
-        return [cpu(t) for t in x] if isinstance(x, list) else x.cpu()
-
-    _eq(got, openings.sparse_openings_packed(cfg, *cpu(list(args[1:])), idx.cpu()))
+    _eq(got, openings.sparse_openings_packed(*cpu_args, idx.cpu()))
+    if not bsz:  # the packed result has the batch axis of the fused core
+        return
+    # the whole packed result: the draws, the free term and the roots too
+    head = fp.from_host(_u32((bsz, cfg.n_constraints + cfg.fri_rounds), 1), dev)  # alphas, betas
+    draws = fp.as_u32(torch.cat([fp.as_i32(head), fp.as_i32(idx)], dim=1))
+    packed = openings.packed_result(*args, draws)
+    _eq(packed, openings.packed_result(*cpu_args, draws.cpu()))
     if bsz == 1:  # four shards of a mesh, owner-masked, OR to the solo vector
-        def shard(a):
-            k = a.shape[1] // 4
-            return a if k < 1 else [a[0, s * k : (s + 1) * k].clone() for s in range(4)]
+        trees = [shard_tree(f_res, f_levels, 4)] + [
+            shard_tree(v, lv, 4) for v, lv in zip(layer_res, layer_levels)]
+        sharded = [trees[0][0], trees[0][1], [t[0] for t in trees[1:]], [t[1] for t in trees[1:]]]
+        for fn, want, arg in ((openings.sparse_openings_packed, got, idx),
+                              (openings.packed_result, packed, draws)):
+            merged = None
+            for s in range(4):
+                part = fn(cfg, *sharded, arg, shard=s, block=s)
+                merged = part.view(torch.int32).clone() if merged is None else merged | part.view(torch.int32)
+            _eq(fp.as_u32(merged), want)
 
-        sharded = [shard(f_res), [shard(v) for v in f_levels], [shard(v) for v in layer_res],
-                   [[shard(v) for v in lv] for lv in layer_levels]]
-        merged = None
-        for s in range(4):
-            part = openings.sparse_openings_packed(cfg, *sharded, idx, shard=s, block=s)
-            part_cpu = openings.sparse_openings_packed(cfg, *cpu(sharded), idx.cpu(), shard=s,
-                                                       block=s)
-            _eq(part, part_cpu)
-            merged = part.view(torch.int32).clone() if merged is None else merged | part.view(torch.int32)
-        _eq(fp.as_u32(merged), got)
+
+def test_fused_core_packed_on_card(dev):
+    """The one vector the openings kernel writes for a fused stark-101 prove
+    (B = 1 and a batch of 3) is the CPU's, word for word."""
+    from zkstark_tpu_torch.protocol import STARK101, STARK101_SECRET, fused
+    from zkstark_tpu_torch.protocol import prover as pr
+
+    trace = pr.trace_to_device(STARK101, STARK101_SECRET, dev)
+    _eq(fused.fused_core_packed(STARK101, trace), fused.fused_core_packed(STARK101, trace.cpu()))
+    traces = fp.as_u32(fp.as_i32(trace)[None].repeat(3, 1))
+    _eq(fused.fused_core_batch_packed(STARK101, traces),
+        fused.fused_core_batch_packed(STARK101, traces.cpu()))
 
 
 @pytest.mark.parametrize("n", [1, 3, 255, 257, 4096, 100_003])
@@ -975,3 +1011,17 @@ def test_field_device_powers_on_card(dev, n):
     _eq(fp.device_powers(base, n), fp.device_powers(base, n, device="cpu"))
     _eq(fp.powers_iota(base, n, 7), fp.powers_iota(base, n, 7, device="cpu"))
     assert fp.device_powers(base, n).device.type == "cuda"
+
+
+@pytest.mark.parametrize("n", [1, 2, 32, 256, 2048, 4096, 1 << 20])
+@pytest.mark.parametrize("field", [fp.FIELD101, fp.FIELD_ALT], ids=["p101", "alt"])
+def test_powers_kernel(dev, n, field):
+    from zkstark_tpu_torch.ops import powers
+
+    base = field.subgroup_generator(1 << 20)
+    before = powers.powers_launches
+    got = powers.powers(field, base, n, 11, dev)
+    assert powers.powers_launches == before + 1
+    _eq(got, powers.powers_plain(field, base, n, 11, "cpu"))
+    _eq(field.powers_iota(base, n, 11), field.powers_iota(base, n, 11, device="cpu"))
+    _eq(field.device_powers(base, n), field.device_powers(base, n, device="cpu"))

@@ -1,21 +1,25 @@
 """The phase-4 openings of the port (`ops.openings`, whose plain twin reads
-the same segments and pointer table that the CUDA kernel ``csrc/openings.cu``
-reads) equal ``zkstark_tpu.protocol.fused.sparse_openings`` word for word
-(tolerance 0: no floats), on random values and digest levels made from a
-seed with numpy:
+the same parameter block, with the kernel's address formulas, that the CUDA
+kernel ``csrc/openings.cu`` reads) equal
+``zkstark_tpu.protocol.fused.sparse_openings`` word for word (tolerance 0:
+no floats), on random values and digest levels made from a seed with numpy
+and uploaded as the trees' one allocation (`hash.merkle.Levels`):
 
   * at q ∈ {1, 3} queries and B ∈ {1, 3} proofs (B = 1 also without a batch
     axis, as the host-synced prover calls it), for the three AIRs (one, two
     and three shifts) and the alt prime's blowup 16;
   * the flat vector is `pack_tree` of the dict: the fused core's layout;
   * on a mesh of S ∈ {2, 4} shards, each shard's owner-masked vector (the
-    arrays of at least S words or rows split into blocks, the others whole)
-    OR-ed together equals the solo vector, and `parallel.pipeline.openings`
-    on a local mesh gives the solo dict;
-  * the kernel's parameters (`describe`: the segment records and the
-    pointer table) name every array with its pointer and log2 size, whether
-    a tree is checked whole or array by array (shards, odd trees);
-  * the wrapper refuses what the kernel does not take.
+    trees of at least S leaves as each shard's subtree and the whole levels
+    above, `parallel.merkle_sharded.shard_tree`) OR-ed together equals the
+    solo vector, and `parallel.pipeline.packed` on a local mesh gives the
+    solo packed result;
+  * the kernel's parameters (`describe`: the header, the tree records and
+    the segment records, each with its tree's record or its source's
+    pointer) hold every tree's sizes and, once the wrapper fills them in,
+    every pointer;
+  * the wrapper refuses what the kernel does not take, a tree whose levels
+    are not one allocation among it.
 """
 
 import jax.numpy as jnp
@@ -28,9 +32,11 @@ from zkstark_tpu.protocol import air as jair
 from zkstark_tpu.protocol import fused as jfused
 from zkstark_tpu.protocol.config import StarkConfig as JaxConfig
 from zkstark_tpu_torch.field import fp as tfp
+from zkstark_tpu_torch.hash import merkle
 from zkstark_tpu_torch.ops import openings as open_op
 from zkstark_tpu_torch.parallel import make_mesh
 from zkstark_tpu_torch.parallel import pipeline as pl
+from zkstark_tpu_torch.parallel.merkle_sharded import shard_tree
 from zkstark_tpu_torch.protocol import air as tair
 from zkstark_tpu_torch.protocol import openings as topen
 from zkstark_tpu_torch.protocol.config import StarkConfig
@@ -77,9 +83,10 @@ def _jax(jcfg, f_res, f_levels, layer_res, layer_levels, queries):
 
 
 def _torch(f_res, f_levels, layer_res, layer_levels):
+    """The trees on the CPU, each tree's levels one allocation."""
     t = lambda a: tfp.from_host(a, "cpu")  # noqa: E731
-    return t(f_res), [t(v) for v in f_levels], [t(v) for v in layer_res], \
-        [[t(v) for v in lv] for lv in layer_levels]
+    lv = lambda levels: merkle.levels_from_host(levels, "cpu")  # noqa: E731
+    return t(f_res), lv(f_levels), [t(v) for v in layer_res], [lv(v) for v in layer_levels]
 
 
 def _assert_dicts_equal(got, want):
@@ -114,13 +121,9 @@ def test_openings_match_jax(air, p, blowup, q, lead):
         _assert_dicts_equal(topen.sparse_openings(cfg, *tens, [int(x) for x in args[4]]), want)
 
 
-def _shard(arr, shards):
-    """A (1, n[, 8]) array as S blocks where it has at least S words or rows."""
-    n = arr.shape[1]
-    if n < shards:
-        return arr
-    k = n // shards
-    return [arr[0, s * k : (s + 1) * k].clone() for s in range(shards)]
+def _shard(values, levels, shards):
+    """One tree of (1, n) values as S shards of a local mesh hold it."""
+    return shard_tree(values, levels, shards)
 
 
 @pytest.mark.parametrize("shards", [2, 4])
@@ -131,9 +134,9 @@ def test_owner_masked_shards_or_to_the_solo_result(shards, q):
     f_res, f_levels, layer_res, layer_levels = _torch(*args[:4])
     idx = tfp.from_host(args[4], "cpu")
     solo = topen.sparse_openings_packed(cfg, f_res, f_levels, layer_res, layer_levels, idx)
-    sh = lambda a: _shard(a, shards)  # noqa: E731
-    sharded = (sh(f_res), [sh(v) for v in f_levels], [sh(v) for v in layer_res],
-               [[sh(v) for v in lv] for lv in layer_levels])
+    f_sh = _shard(f_res, f_levels, shards)
+    layers = [_shard(v, lv, shards) for v, lv in zip(layer_res, layer_levels)]
+    sharded = (*f_sh, [v for v, _ in layers], [lv for _, lv in layers])
     parts = [topen.sparse_openings_packed(cfg, *sharded, idx, shard=s, block=s)
              for s in range(shards)]
     assert all(p.shape == solo.shape for p in parts)
@@ -142,50 +145,94 @@ def test_owner_masked_shards_or_to_the_solo_result(shards, q):
         merged |= part.view(torch.int32)
     np.testing.assert_array_equal(tfp.to_host(tfp.as_u32(merged)), tfp.to_host(solo))
     assert any(tfp.to_host(p).sum() != tfp.to_host(solo).sum() for p in parts)  # masks work
-    mesh = make_mesh(shards, device="cpu")
-    got = pl.openings(cfg, *sharded, idx, mesh)
-    _assert_dicts_equal(got, topen.unpack_tree(tfp.to_host(solo),
-                                               topen.opening_shapes(cfg, (1,))))
+    # the fused core's whole packed result through the pipeline's mesh step
+    head = np.arange(cfg.n_constraints + cfg.fri_rounds, dtype=np.uint32)  # alphas, betas
+    draws = tfp.from_host(np.concatenate([head, args[4].reshape(-1)])[None], "cpu")
+    want = pl.packed(cfg, f_res, f_levels, layer_res, layer_levels, draws, None)
+    got = pl.packed(cfg, *sharded, draws, make_mesh(shards, device="cpu"))
+    np.testing.assert_array_equal(tfp.to_host(got), tfp.to_host(want))
+    np.testing.assert_array_equal(tfp.to_host(want)[-8 * (2 + cfg.fri_rounds) - q:][:q],
+                                  args[4].reshape(-1))  # the queries copied
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     _, cfg = _configs()
     f_res, f_levels, layer_res, layer_levels = _torch(*_inputs(cfg, (), seed=7)[:4])
     idx = tfp.from_host(np.zeros(1, dtype=np.uint32), "cpu")
+    tree = open_op.Tree(f_res, f_levels.buffer, f_res.shape[0].bit_length() - 1)
+    vals = open_op.Segment(open_op.VALUES, 0, 7)
     with pytest.raises(ValueError):  # the queries are not uint32
-        open_op.openings(idx.view(torch.int32), [[f_res]], topen.segments(cfg)[3:4])
+        open_op.openings(idx.view(torch.int32), [tree], topen.segments(cfg)[3:4])
     with pytest.raises(ValueError):  # a block outside a shard
-        open_op.openings(idx, [[open_op.Block(f_res)]], [open_op.Segment(0, False, 7, (0,))])
+        open_op.openings(idx, [tree._replace(values=open_op.Block(f_res))], [vals])
     with pytest.raises(ValueError):  # values that are not a power of two long
-        open_op.openings(idx, [[f_res[:5]]], [open_op.Segment(0, False, 3, (0,))])
-    assert open_op.openings(idx, [[f_res]], []).numel() == 0
+        open_op.openings(idx, [tree._replace(values=f_res[:5])], [vals])
+    with pytest.raises(ValueError):  # levels that are not the tree's one allocation
+        open_op.openings(idx, [tree._replace(levels=f_levels.buffer[8:])], [vals])
+    with pytest.raises(ValueError):  # a list of levels, not `hash.merkle.Levels`
+        topen.sparse_openings_packed(cfg, f_res, list(f_levels), layer_res, layer_levels, idx)
+    with pytest.raises(ValueError):  # a copy source shorter than its segment
+        open_op.openings(idx, [tree], [open_op.Segment(open_op.COPY, 0, count=4)], copies=(idx,))
+    assert open_op.openings(idx, [tree], []).numel() == 0
 
 
 @pytest.mark.parametrize("shards,lead", [(None, ()), (None, (1,)), (None, (3,)), (4, (1,))],
                          ids=["solo", "B1", "B3", "shard"])
 def test_describe_names_every_array(shards, lead):
+    """The parameter block holds the header, each tree's sizes and each
+    segment's record, followed by its tree's record or its COPY source's
+    pointer; with the pointers filled in as the wrapper fills them, every
+    slot holds its tensor's address."""
     _, cfg = _configs("fibonacci-sq", tfp.P, 8, 3)
     args = _inputs(cfg, lead, seed=200 + len(lead))
     tens = list(_torch(*args[:4]))
     idx = tfp.from_host(args[4], "cpu")
     if shards:
-        sh = lambda a: _shard(a, shards)  # noqa: E731
-        tens = [sh(tens[0]), [sh(v) for v in tens[1]], [sh(v) for v in tens[2]],
-                [[sh(v) for v in lv] for lv in tens[3]]]
-    trees = topen._trees(cfg, *tens)
-    if shards:
-        trees = [[open_op.Block(a[1]) if isinstance(a, list) else a for a in t] for t in trees]
-    else:  # a tree that does not halve is read array by array
-        trees[-1] = [trees[-1][0], trees[-1][1][..., ::2, :].contiguous()]
-    segs = topen.segments(cfg)
-    records, table, total = open_op.describe(idx, trees, segs, 1 if shards else None)
-    arrays = [a for t in trees for a in t]
-    assert table.shape == (len(arrays), 2) and table.dtype == np.uint64
-    for (ptr, word), arr in zip(table.tolist(), arrays):
-        t = arr.words if isinstance(arr, open_op.Block) else arr
-        rows = t.shape[0 if isinstance(arr, open_op.Block) else len(lead)]
-        assert ptr == t.data_ptr() and word == (rows.bit_length() - 1) | (
-            isinstance(arr, open_op.Block) << 32)
-    assert records.shape == (len(segs), 14) and records[0, 0] == 0
-    assert total == sum(open_op.segment_words(g, trees, lead, cfg.n_queries) for g in segs)
-    assert total == open_op.openings(idx, trees, segs, 1 if shards else None).numel()
+        f_sh = _shard(tens[0], tens[1], shards)
+        layers = [_shard(v, lv, shards) for v, lv in zip(tens[2], tens[3])]
+        tens = [*f_sh, [v for v, _ in layers], [lv for _, lv in layers]]
+    trees = topen.trees(*tens, block=1 if shards else None)
+    q = cfg.n_queries
+    segs = topen.segments(cfg) + (open_op.Segment(open_op.COPY, 0, count=q, stride=q),)
+    key, ptrs = open_op._collect(idx, trees, (idx,))
+    plan = open_op.describe(segs, lead, q, bool(shards), key)
+    bsz = int(np.prod(lead, dtype=np.int64))
+    words = plan.words
+    assert tuple(words[4:10]) == (q, 0 if shards else open_op.ALL, bsz, len(trees), q, len(segs))
+    tree_words, seg_words = open_op.TREE_WORDS, open_op.SEG_WORDS
+    for i, t in enumerate(trees):
+        rec = words[open_op.HEADER_WORDS + tree_words * i:][:tree_words]
+        block = isinstance(t.values, open_op.Block)
+        size = (t.values.words if block else t.values).shape[-1]
+        assert rec[6] == t.log_n | (size.bit_length() - 1) << 8 | int(block) << 16
+        assert t.log_n == cfg.eval_domain.bit_length() - 1 - max(i - 1, 0)
+    assert plan.n_segs == len(segs)
+    base = open_op.HEADER_WORDS + tree_words * len(trees)
+    recs = words[base:].reshape(-1, seg_words)
+    assert recs[0, 0] == 0 and all(recs[1:, 0] > recs[:-1, 0])
+    out = torch.empty(plan.total, dtype=torch.uint32)
+    filled = words.copy()
+    filled.view(np.uint64)[plan.slots] = np.array(
+        [idx.data_ptr(), out.data_ptr(), *ptrs], dtype=np.uint64)[plan.sources]
+    got = filled.view(np.uint64)
+    assert got[0] == idx.data_ptr() and got[1] == out.data_ptr()
+
+    def holds(at: int, t) -> None:  # tree t's record from word `at`
+        at //= 2
+        assert got[at] == open_op._tensor(t.values).data_ptr()
+        assert got[at + 1] == open_op._tensor(t.levels).data_ptr()
+        assert got[at + 2] == (0 if t.top is None else t.top.data_ptr())
+
+    for i, t in enumerate(trees):
+        holds(open_op.HEADER_WORDS + tree_words * i, t)
+    for k, seg in enumerate(segs):
+        tail = base + seg_words * k + open_op.SEG_OWN_WORDS
+        if seg.kind == open_op.COPY:
+            assert got[tail // 2] == idx.data_ptr()
+        else:
+            holds(tail, trees[seg.tree])
+            at = open_op.HEADER_WORDS + tree_words * seg.tree
+            assert tuple(words[tail + 6 : tail + 8]) == tuple(words[at + 6 : at + 8])
+    assert plan.total == open_op.openings(idx, trees, segs, 1 if shards else None,
+                                          (idx,)).numel()
+    assert plan.block_bytes <= 4096

@@ -1,19 +1,36 @@
 """The port covers the JAX package: every public name of every module of
-``zkstark_tpu/`` has its counterpart in ``zkstark_tpu_torch/``.
+``zkstark_tpu/``, every public member of its classes and every parameter
+name of its public functions and methods has its counterpart in
+``zkstark_tpu_torch/``.
 
-The JAX names are read with `ast` (top-level functions, classes, UPPER_CASE
-constants and an ``__init__.py``'s ``__all__``, not imported names), so no TPU
-code is imported to list them. Each name is one case, and each case holds
-exactly one of:
+The JAX names are read with `ast`, so no TPU code is imported to list them:
+the top-level functions, classes, UPPER_CASE constants and an
+``__init__.py``'s ``__all__`` (not imported names), written ``path:name``;
+the members of each public class, read from its body (methods, properties,
+UPPER_CASE class attributes and annotated fields), ``path:Class.member``;
+and the parameter names of each public function and method (``__init__``
+included, ``self`` and ``cls`` not), ``path:function(param)`` and
+``path:Class.method(param)``. Each is one case, and each case holds exactly
+one of:
 
-  (a) the port's module of the same relative path has the name;
+  (a) the port's module of the same relative path has the name, the class
+      there has the member (an attribute, a dataclass or NamedTuple field, a
+      slot), or the function there takes a parameter of that name (the port
+      may take more, such as ``device=``; positional order is not compared:
+      the port's ``prove(cfg, secret, device, …)`` differs and its callers
+      depend on it);
   (b) `RENAMED` points it at a port name that exists and computes the same
       thing, held equal to the JAX function by the test its entry names;
   (c) `NOT_PORTED` gives the reason in one line. It holds only what has no
       meaning on the card: the XLA runtime helpers, the Pallas grid emulator
       and switches, the GSPMD sharding specs (the port shards by the block
-      lists of ``parallel/__init__.py``), and the planar storage policy of the
-      Merkle trees, which the A/B of PERF.md found slower on the card.
+      lists of ``parallel/__init__.py``), the planar storage policy of the
+      Merkle trees, which the A/B of PERF.md found slower on the card, the
+      stage tables the port's plans do not hold, and two arguments the card
+      does not need.
+
+The members and parameters of a name that is itself `RENAMED` or
+`NOT_PORTED` are covered by that entry and are not walked.
 
 Below the walk, the equality tests of the names this file's maps need and no
 other test holds, and of the names added beside them: `alt_field_config`,
@@ -21,8 +38,10 @@ the native channel primitives, `fri_layer_constants`, `FourStepPlan`.
 """
 
 import ast
+import dataclasses
 import hashlib
 import importlib
+import inspect
 import shutil
 from pathlib import Path
 from types import SimpleNamespace
@@ -54,6 +73,35 @@ RENAMED = {
     "protocol/prover.py:fused_decommit": (
         "protocol/prover.py:decommit",
         "test_torch_parity.py::test_decommit_writes_fused_decommit_bytes"),
+    # members and parameters
+    "ops/ntt_kernel.py:FourStepPlan.u": (
+        "ops/ntt_kernel.py:FourStepPlan.ut", "test_torch_parity.py::test_fourstep_plan"),
+    "ops/ntt_kernel.py:FourStepPlan.v": (
+        "ops/ntt_kernel.py:FourStepPlan.vt", "test_torch_parity.py::test_fourstep_plan"),
+    "ops/sha256_kernel.py:node_hash_pairs(pairs)": (
+        "ops/sha256_kernel.py:node_hash_pairs(children)",
+        "test_torch_sha256_merkle.py::test_node_hash_matches_jax"),
+    "hash/merkle.py:planar_to_natural(level)": (
+        "hash/merkle.py:planar_to_natural(planes)",
+        "test_torch_sha256_planes.py::test_planar_to_natural"),
+    "hash/merkle.py:build_levels(planar)": (
+        "hash/merkle.py:build_levels(planar_stop)", "test_torch_sha256_planes.py::test_chain_levels"),
+    "parallel/mesh.py:make_mesh(backend)": (
+        "parallel/mesh.py:make_mesh(device)", "test_torch_parity.py::test_mesh_device_is_backend"),
+    "parallel/mesh.py:make_host_chip_mesh(backend)": (
+        "parallel/mesh.py:make_host_chip_mesh(device)",
+        "test_torch_parity.py::test_mesh_device_is_backend"),
+    "parallel/fri_sharded.py:fold_sharded(beta_mont)": (
+        "parallel/fri_sharded.py:fold_sharded(beta)", "test_torch_sharded.py::test_fold_matches_jax"),
+    "parallel/fri_sharded.py:fold_sharded(inv_x)": (
+        "parallel/fri_sharded.py:fold_sharded(inv_base)",
+        "test_torch_sharded.py::test_fold_matches_jax"),
+    "parallel/merkle_sharded.py:sharded_build_levels(values)": (
+        "parallel/merkle_sharded.py:sharded_build_levels(blocks)",
+        "test_torch_sharded.py::test_sharded_levels_match_jax"),
+    "parallel/merkle_sharded.py:sharded_commit(values)": (
+        "parallel/merkle_sharded.py:sharded_commit(blocks)",
+        "test_torch_sharded.py::test_sharded_levels_match_jax"),
 }
 
 _RUNTIME = "the XLA runtime: the port has no compilation cache or transfer path to warm"
@@ -62,6 +110,8 @@ _PALLAS = "the Pallas switch: every four-step and hash runs its CUDA kernel on a
 _GSPMD = "a GSPMD sharding spec: the port's shards are the block lists of parallel/__init__.py"
 _PLANAR = ("the planar storage policy: on the card the plane-major tree was slower than "
            "row-major in both turns of the A/B (PERF.md)")
+_STAGES = ("a stage table: the port's plans hold none, the row kernels take their stage roots "
+           "from the root itself")
 NOT_PORTED = {
     "runtime.py:enable_compilation_cache": _RUNTIME,
     "runtime.py:warm_transfer_path": _RUNTIME,
@@ -77,6 +127,13 @@ NOT_PORTED = {
        if not (mod == "__init__.py" and name == "domain_spec")},
     **{f"hash/merkle.py:{name}": _PLANAR
        for name in ("planar_for_domain", "PLANAR_MIN", "PLANAR_DOMAIN_MIN", "is_planar")},
+    **{f"ntt/core.py:NttPlan.{name}": _STAGES for name in ("bitrev", "twiddles")},
+    **{f"ops/ntt_kernel.py:FourStepPlan.{name}": _STAGES
+       for name in ("tw1", "tw2", "twp1", "twp2", "br1", "br2")},
+    "parallel/fri_sharded.py:fold_sharded(inv2_mont)":
+        "1/2 is a constant of the field: the fold kernel takes it from the prime",
+    "protocol/fused.py:unpack_out(mesh)":
+        "the fetched vector is whole on every process (Mesh.replicate): unpacking reads no mesh",
 }
 # What NOT_PORTED may hold at all: whole modules, or names of one module
 _MAY_NOT_PORT = {
@@ -87,6 +144,10 @@ _MAY_NOT_PORT = {
     "parallel/mesh.py": {"replicated", "row_sharding", "vec_sharding", "domain_spec"},
     "hash/merkle.py": {"planar_for_domain", "PLANAR_MIN", "PLANAR_STOP", "PLANAR_DOMAIN_MIN",
                        "is_planar"},
+    "ntt/core.py": {"NttPlan.bitrev", "NttPlan.twiddles"},
+    "ops/ntt_kernel.py": {f"FourStepPlan.{t}" for t in ("tw1", "tw2", "twp1", "twp2", "br1", "br2")},
+    "parallel/fri_sharded.py": {"fold_sharded(inv2_mont)"},
+    "protocol/fused.py": {"unpack_out(mesh)"},
 }
 
 
@@ -111,11 +172,62 @@ def public_names(path: Path) -> list:
     return sorted(out)
 
 
-CASES = [
-    f"{path.relative_to(JAX_PKG).as_posix()}:{name}"
-    for path in sorted(JAX_PKG.rglob("*.py"))
-    for name in public_names(path)
-]
+def class_members(node: ast.ClassDef) -> list:
+    """The public members of a class body: methods (properties, class and
+    static methods among them), UPPER_CASE class attributes and annotated
+    fields."""
+    out = set()
+    for item in node.body:
+        if isinstance(item, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            if not item.name.startswith("_"):
+                out.add(item.name)
+        elif isinstance(item, (ast.Assign, ast.AnnAssign)):
+            targets = item.targets if isinstance(item, ast.Assign) else [item.target]
+            for target in targets:
+                for n in ast.walk(target):
+                    if (isinstance(n, ast.Name) and not n.id.startswith("_")
+                            and (n.id.isupper() or isinstance(item, ast.AnnAssign))):
+                        out.add(n.id)
+    return sorted(out)
+
+
+def parameters(node) -> list:
+    """The parameter names of a `def`, without self and cls."""
+    a = node.args
+    names = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+    names += [x.arg for x in (a.vararg, a.kwarg) if x is not None]
+    return [n for n in names if n not in ("self", "cls")]
+
+
+def _covered(key: str) -> bool:
+    return key in RENAMED or key in NOT_PORTED
+
+
+def walk(path: Path) -> list:
+    """The cases of one source file: its public names, the members of its
+    public classes and the parameters of its public functions and methods,
+    skipping what an entry of a name above them covers."""
+    rel = path.relative_to(JAX_PKG).as_posix()
+    out = [f"{rel}:{name}" for name in public_names(path)]
+    for node in ast.parse(path.read_text()).body:
+        if node.name.startswith("_") if hasattr(node, "name") else True:
+            continue
+        if _covered(f"{rel}:{node.name}"):
+            continue
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            out += [f"{rel}:{node.name}({a})" for a in parameters(node)]
+        elif isinstance(node, ast.ClassDef):
+            members = class_members(node)
+            out += [f"{rel}:{node.name}.{m}" for m in members]
+            for item in node.body:
+                if (isinstance(item, (ast.FunctionDef, ast.AsyncFunctionDef))
+                        and (item.name in members or item.name == "__init__")
+                        and not _covered(f"{rel}:{node.name}.{item.name}")):
+                    out += [f"{rel}:{node.name}.{item.name}({a})" for a in parameters(item)]
+    return out
+
+
+CASES = [key for path in sorted(JAX_PKG.rglob("*.py")) for key in walk(path)]
 
 
 def port_module(rel: str):
@@ -129,10 +241,41 @@ def port_module(rel: str):
     return importlib.import_module(f"zkstark_tpu_torch.{dotted}")
 
 
+def _fields(cls) -> set:
+    """The instance fields a class declares: dataclass and NamedTuple
+    fields, slots and annotations, over its bases."""
+    out = set(getattr(cls, "_fields", ()))
+    if dataclasses.is_dataclass(cls):
+        out |= {f.name for f in dataclasses.fields(cls)}
+    for base in cls.__mro__:
+        out |= set(getattr(base, "__slots__", ())) | set(getattr(base, "__annotations__", {}))
+    return out
+
+
 def port_has(key: str) -> bool:
+    """Whether the port has the name, member or parameter of `key`."""
     rel, name = key.split(":")
+    name, _, param = name.partition("(")
     mod = port_module(rel)
-    return mod is not None and hasattr(mod, name)
+    if mod is None:
+        return False
+    owner, _, member = name.rpartition(".")
+    obj = mod
+    if owner:
+        obj = getattr(mod, owner, None)
+        if not isinstance(obj, type):
+            return False
+        if not param and member in _fields(obj):
+            return True
+    obj = getattr(obj, member, None)
+    if obj is None:
+        return False
+    if not param:
+        return True
+    try:
+        return param[:-1] in inspect.signature(obj).parameters
+    except (TypeError, ValueError):
+        return False
 
 
 @pytest.mark.parametrize("key", CASES)
@@ -174,6 +317,29 @@ def test_walk_sees_the_whole_package():
     assert {"field/fp.py", "hash/merkle.py", "ops/sha256_kernel.py", "protocol/prover.py",
             "native.py", "runtime.py", "ops/testing.py"} <= modules
     assert len(CASES) >= 240
+    # class members and parameter names, not only top-level names
+    assert {"field/fp.py:Field.mont_mul", "field/fp.py:Field.powers_iota(scale)",
+            "hash/merkle.py:MerkleTree.num_leaves", "protocol/checkpoint.py:ResumableProver.PHASES",
+            "protocol/prover.py:prove(channel)", "ntt/core.py:NttPlan.bitrev"} <= set(CASES)
+    assert not any(k.startswith("runtime.py:") and "(" in k for k in CASES)  # NOT_PORTED names
+    assert len(CASES) == len(set(CASES))
+
+
+def test_mesh_device_is_backend():
+    """`make_mesh(device=)` and `make_host_chip_mesh(device=)` take the
+    JAX functions' `backend=`: the same shapes and axis names on the CPU."""
+    import jax
+
+    from zkstark_tpu.parallel import mesh as jmesh
+    from zkstark_tpu_torch.parallel import mesh
+
+    for n in sorted({1, min(2, len(jax.devices("cpu")))}):
+        want = jmesh.make_mesh(n, backend="cpu")
+        got = mesh.make_mesh(n, device="cpu")
+        assert got.axis_names == tuple(want.axis_names) and got.shape == dict(want.shape)
+    want = jmesh.make_host_chip_mesh(1, 1, backend="cpu")
+    got = mesh.make_host_chip_mesh(1, 1, device="cpu")
+    assert got.axis_names == tuple(want.axis_names) and got.shape == dict(want.shape)
 
 
 # ---------------------------------------------------------------------------

@@ -183,9 +183,14 @@ def test_sharded_composition_matches_jax(which, s):
     want = np.asarray(jax.jit(lambda f, a: jpr.composition_eval(jcfg, f, a))(
         jnp.asarray(f_eval), jnp.asarray(alphas)))
     mesh = make_mesh(s, device="cpu")
-    cp, res = pipeline.composition(cfg, mesh.shard(_t(f_eval)), _t(alphas), mesh)
+    cp, res, levels = pipeline.composition(cfg, mesh.shard(_t(f_eval)), _t(alphas), mesh)
     np.testing.assert_array_equal(_gather(cp), want)
-    np.testing.assert_array_equal(_gather(res), fp.to_host(fp.from_mont_f(cfg.field, _t(want))))
+    want_res = fp.to_host(fp.from_mont_f(cfg.field, _t(want)))
+    np.testing.assert_array_equal(_gather(res), want_res)
+    # the residues' tree, built with them: the JAX root of the whole residues
+    np.testing.assert_array_equal(fp.to_host(levels[-1]).reshape(8),
+                                  np.asarray(jmerkle.build_levels(jnp.asarray(want_res))[-1])
+                                  .reshape(8))
     halo = pipeline.halo_words(cfg)
     # the halo crosses to another shard where there is one (S = 1 sends to itself)
     assert mesh.bytes_moved.get("exchange", 0) == (4 * halo * s if halo and 1 < s <= d // halo else 0)

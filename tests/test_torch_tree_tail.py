@@ -105,13 +105,13 @@ def test_the_hand_over_from_node_levels_to_the_tail(monkeypatch, threshold):
     calls = {"node": 0, "tail": 0}
     node, tail = tkern.node_hash_pairs, tkern.tree_tail
 
-    def counted_node(children):
+    def counted_node(children, **kw):  # kw: the out= view into the tree's one allocation
         calls["node"] += 1
-        return node(children)
+        return node(children, **kw)
 
-    def counted_tail(level, trees, from_values=False):
+    def counted_tail(level, trees, from_values=False, **kw):
         calls["tail"] += 1
-        return tail(level, trees, from_values)
+        return tail(level, trees, from_values, **kw)
 
     monkeypatch.setattr(tkern, "node_hash_pairs", counted_node)
     monkeypatch.setattr(tkern, "tree_tail", counted_tail)

@@ -34,11 +34,14 @@ struct ChainArgs {
   uint32_t* state_out;       // (chains, 8)
   const uint32_t* digest;    // (chains, 8) at digest_stride words a row, or null
   int64_t digest_stride;
-  const uint32_t* word;      // (chains,), or null
+  const uint32_t* word;      // (chains,) at word_stride words apart, or null
+  int64_t word_stride;
   int n_draws;
-  uint32_t* draws;           // (chains, n_draws)
+  uint32_t* draws;           // (chains, n_draws) at draws_stride words a row
+  int64_t draws_stride;
   uint32_t* mont;            // (chains, n_draws)
-  uint32_t* mod;             // (chains, n_draws), or null
+  uint32_t* mod;             // (chains, n_draws) at mod_stride words a row, or null
+  int64_t mod_stride;
   uint32_t query_range;
   uint32_t r2;               // R^2 mod p
   Fp f;
@@ -67,13 +70,13 @@ __global__ void fs_chain_kernel(const ChainArgs a) {
   for (int it = 0; it < has_word + a.n_draws; ++it) {
     uint32_t v;
     if (it < has_word) {
-      v = a.word[c];
+      v = a.word[c * a.word_stride];
     } else {
       v = st[0];
       const int64_t at = c * a.n_draws + (it - has_word);
-      a.draws[at] = v;
+      a.draws[c * a.draws_stride + (it - has_word)] = v;
       a.mont[at] = fp_mul(v, a.r2, a.f);
-      if (a.mod != nullptr) a.mod[at] = v % a.query_range;
+      if (a.mod != nullptr) a.mod[c * a.mod_stride + (it - has_word)] = v % a.query_range;
     }
 #pragma unroll
     for (int i = 0; i < 8; ++i) w[i] = st[i];
@@ -95,22 +98,26 @@ constexpr int kThreads = 64;
 
 // One challenge boundary for `chains` independent channels: state_in (chains,
 // 8) -> state_out, after committing digest (row c at digest + c *
-// digest_stride; null: none), then word (chains,; null: none), then n_draws
-// draws written to draws / mont / mod (mod null: not wanted), each (chains,
-// n_draws). state_out may alias state_in.
+// digest_stride; null: none), then word (chain c's at word + c * word_stride;
+// null: none), then n_draws draws written to draws (row c at draws + c *
+// draws_stride: the packed result's columns), mont ((chains, n_draws)) and
+// mod (row c at mod + c * mod_stride; null: not wanted). state_out may alias
+// state_in.
 extern "C" int zk_fs_chain(const uint32_t* state_in, uint32_t* state_out, const uint32_t* digest,
-                           int64_t digest_stride, const uint32_t* word, int n_draws,
-                           uint32_t* draws, uint32_t* mont, uint32_t* mod, uint32_t query_range,
-                           uint32_t r2, uint32_t p, uint32_t pinv, int64_t chains,
-                           cudaStream_t stream) {
+                           int64_t digest_stride, const uint32_t* word, int64_t word_stride,
+                           int n_draws, uint32_t* draws, int64_t draws_stride, uint32_t* mont,
+                           uint32_t* mod, int64_t mod_stride, uint32_t query_range, uint32_t r2,
+                           uint32_t p, uint32_t pinv, int64_t chains, cudaStream_t stream) {
   if (chains < 0 || chains > 0x7fffffffLL * kThreads || n_draws < 0 || digest_stride < 0 ||
+      word_stride < 0 || draws_stride < 0 || mod_stride < 0 ||
       (mod != nullptr && query_range == 0u) ||
       (n_draws > 0 && (draws == nullptr || mont == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (chains > 0) {
-    const ChainArgs a{state_in, state_out, digest, digest_stride, word, n_draws, draws,
-                      mont, mod, query_range, r2, Fp{p, pinv}, chains};
+    const ChainArgs a{state_in, state_out,  digest, digest_stride, word,        word_stride,
+                      n_draws,  draws,      draws_stride,  mont, mod,         mod_stride,
+                      query_range, r2,      Fp{p, pinv},   chains};
     const unsigned blocks = static_cast<unsigned>((chains + kThreads - 1) / kThreads);
     fs_chain_kernel<<<blocks, kThreads, 0, stream>>>(a);
   }

@@ -1,160 +1,257 @@
-// Kernel: every phase-4 opening of a proof (or a batch of proofs) in one
-// launch, written straight into the packed result vector.
+// Kernel: the fused core's packed result in one launch: every phase-4
+// opening, the Merkle roots, the free term and the chain's draws, written
+// straight into the one vector the host fetches.
 //
 // Counterpart of zkstark_tpu/protocol/fused.py:225-316 (_take_val,
-// _take_digest, _auth_path, sparse_openings), which XLA fused into the one
-// compiled program of the fused core. As plain tensor ops the same gathers are
-// some 330 launches at stark-101 and 900 at 2^24; the work itself is a few
+// _take_digest, _auth_path, sparse_openings) and of the packing at :151-168
+// (the stacks of roots and draws, pack_tree), which XLA fused into the one
+// compiled program of the fused core. As plain tensor ops the gathers alone
+// are some 330 launches at stark-101 and 900 at 2^24; the work is a few
 // thousand words.
 //
 // The host (ops/openings.py) describes the result as segments, each a leaf
-// of the packed vector in its order (sorted keys, lists in order), of shape
-// (batch, q, n_idx) for values or (batch, q, n_idx, depth, 8) for auth paths,
-// and hands over the arrays they read, tree by tree: the values, then the
-// digest levels from the leaves up. Segment `s` reads tree arrays from
-// `first` on, and slot `i` of query x opens index
+// of the packed vector in its order, B-major: proof b's words of a leaf
+// follow proof b - 1's. Kinds:
+//   VALUES  tree t's values at idx = ((x & mask) + add[i]) & mask for each
+//           query x and slot i: (q, n_idx) words a proof;
+//   PATHS   the auth paths there, level l the sibling digest
+//           level[l][(idx >> l) ^ 1]: (q, n_idx, depth, 8) words a proof;
+//   ROOTS   the top level of `count` trees: (count, 8) words a proof;
+//   FIRST   tree t's value 0: one word a proof (the free term);
+//   COPY    `count` words a proof from word `offset` of a source's rows,
+//           `stride` apart (the chain's draws).
+// A tree is its values, its digest levels in one allocation, level l at word
+// 8·B·(2N - 2N/2^l) (hash/merkle.py Levels), and on a shard the whole
+// levels above its subtree in a second one: at most three pointers, whatever
+// its depth, and one where the values head the levels' allocation (the fused
+// core's trees). Its level offsets come from shifts of its sizes.
 //
-//   idx = ((x & mask) + add[i]) & mask
+// One block of threads writes one (segment, proof), chosen by blockIdx: the
+// segment's record is uniform across the block, so no thread searches for
+// its segment or reads a table entry of its own. A segment's record holds a
+// copy of the record of the tree it reads (or its COPY source's pointer), so
+// that a thread reaches every address from the segment's record alone, one
+// load of the parameters shorter than through a table of trees (which only
+// ROOTS reads); each thread loads its own query, with no staging and no
+// barrier. In PATHS a thread's column is tid & 7 and its level and slot come
+// from shifts of tid >> 3 against the segment's padded depth (2^lg rows a
+// slot) and padded slot count (2^ln a query); VALUES and COPY take a word a
+// thread. No division.
 //
-// (the JAX index rules: x + k·blowup per shift with mask = 2^32 - 1; a FRI
-// layer's x & (size - 1) and its partner + size/2). A value is
-// values[idx]; level l of a path is the sibling digest levels[l][(idx >> l) ^ 1].
+// The parameters go by value in one block sized to what it holds: a header
+// of 10 words, 8 words a tree, 20 a segment (the host picks the smallest of
+// the kernel's instances that holds them). They are read from the parameter
+// space by index (__grid_constant__), so nothing is copied to local memory.
 //
-// One thread writes one word of the result. The segments, the pointer table
-// and the sizes arrive by value as kernel parameters (Hopper with CUDA >= 12.1
-// takes up to 32 KB of them): the level tensors are new allocations in every
-// prove, and by value they need neither an upload nor a wait.
+// A shard of the sharded prover (parallel/pipeline.py) passes its index; a
+// sharded array is then this shard's block of 2^k words (or rows), which owns
+// global index i when i >> k == shard and holds it at i & (2^k - 1); a whole
+// array (a COPY source, a level above the subtree roots) is read by shard 0
+// alone. A word the shard does not own is written as 0, so that the bitwise
+// OR of every shard's vector (Mesh.replicate) is the whole result.
 //
-// A shard of the sharded prover (parallel/pipeline.py) passes its index; an
-// array marked sharded is then this shard's block of 2^log_size words (or
-// rows), which owns global index i when i >> log_size == shard and holds it
-// at i & (2^log_size - 1); an array not marked is whole and read by shard 0
-// alone. A word the shard does not own is written as 0, so that the bitwise OR
-// of every shard's vector (Mesh.replicate) is the whole result. Without a
-// shard (shard = -1) every array is whole and read.
-//
-// Bound by the latency of one dependent pair of loads (the query, then the
-// word), not by bytes or operations: the result is a few KB.
+// Bound by the latency of a chain of dependent loads (the parameters, the
+// query, then the word), not by bytes or operations: the result is a few KB.
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxSegs = 64;
-constexpr int kMaxArrays = 512;
-constexpr int kMaxAdds = 8;
+constexpr int kThreads = 512;
+// header: queries (2), out (2), q, shard, batch, trees, the queries' row
+// stride, segments
+constexpr int kHeader = 10;
+// tree: values (2), levels (2, or 0: the levels follow the values by `head`
+// words of the same allocation), top (2), log_n | log_blk << 8 | sharded << 16,
+// head
+constexpr int kTree = 8;
+// segment: out, code, per_proof, mask | stride, add[8] | offset | count, then
+// its tree's record (VALUES, PATHS, FIRST) or its source's pointer (COPY)
+constexpr int kSeg = 12 + kTree;
+enum Kind : uint32_t { kValues = 0, kPaths = 1, kRoots = 2, kCopy = 3, kFirst = 4 };
 
-struct Seg {              // 14 words, all uint32 (the host's numpy layout)
-  uint32_t out;           // the segment's first word in the result
-  uint32_t first;         // its tree's values in the array table; levels follow
-  uint32_t path;          // 0: one word a slot; 1: depth·8 words a slot
-  uint32_t depth;
-  uint32_t n_idx;         // slots a query
-  uint32_t mask;
-  uint32_t add[kMaxAdds];
+template <int W>
+struct Params {
+  uint32_t w[W];
 };
 
-struct Array {            // 16 bytes (the host's numpy layout)
-  const uint32_t* ptr;    // (batch, 2^log_size[, 8]) whole, or a shard's block
-  uint32_t log_size;
-  uint32_t sharded;
+__device__ __forceinline__ const uint32_t* ptr_at(const uint32_t* w, uint32_t i) {
+  return reinterpret_cast<const uint32_t*>((static_cast<uint64_t>(w[i + 1]) << 32) | w[i]);
+}
+
+// A tree's record, read once into registers.
+struct Tree {
+  const uint32_t* values;
+  const uint32_t* levels;  // the block's levels (level 0 first)
+  const uint32_t* top;     // the whole levels above a shard's subtree
+  uint32_t log_n, log_blk, sharded;
 };
 
-struct OpenArgs {
-  const uint32_t* queries;  // (batch, q)
-  uint32_t* out;            // total words
-  uint32_t total;
-  int batch;
-  int q;
-  int n_segs;
-  int shard;                // -1: no mesh
-  Seg segs[kMaxSegs];
-  Array arrays[kMaxArrays];
-};
+__device__ __forceinline__ Tree tree_at(const uint32_t* t) {
+  Tree r;
+  r.values = ptr_at(t, 0);
+  r.levels = ptr_at(t, 2);
+  if (r.levels == nullptr) r.levels = r.values + t[7];  // after the values, one allocation
+  r.top = ptr_at(t, 4);
+  r.log_n = t[6] & 255u;
+  r.log_blk = (t[6] >> 8) & 255u;
+  r.sharded = t[6] >> 16;
+  return r;
+}
 
-__global__ void __launch_bounds__(kThreads) openings_kernel(const OpenArgs a) {
-  const uint32_t i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= a.total) return;
-  int s = 0;
-  while (s + 1 < a.n_segs && a.segs[s + 1].out <= i) ++s;
-  // fields are read from the parameter space by index: no address of a
-  // parameter is taken, so nothing is copied to local memory
-  const uint32_t path = a.segs[s].path, n_idx = a.segs[s].n_idx, mask = a.segs[s].mask;
-  const uint32_t width = path ? a.segs[s].depth * 8u : 1u;  // words a slot
-  const uint32_t pos = i - a.segs[s].out;
-  const uint32_t per_proof = static_cast<uint32_t>(a.q) * n_idx * width;
-  const uint32_t b = pos / per_proof;
-  const uint32_t rem = pos - b * per_proof;
-  const uint32_t slot_all = rem / width;  // query · n_idx + slot
-  const uint32_t word = rem - slot_all * width;
-  const uint32_t qi = slot_all / n_idx;
-  const uint32_t slot = slot_all - qi * n_idx;
-  const uint32_t x = __ldg(a.queries + static_cast<int64_t>(b) * a.q + qi);
-  uint32_t idx = ((x & mask) + a.segs[s].add[slot]) & mask;
-  uint32_t col = 0;
-  uint32_t row_words = 1;
-  uint32_t k = a.segs[s].first;
-  if (path) {
-    const uint32_t level = word >> 3;
-    idx = (idx >> level) ^ 1u;
-    col = word & 7u;
-    row_words = 8;
-    k += 1 + level;
+// The address of word `col` of row `row` of digest level `level` of tree t,
+// proof b, or null where this shard does not own it. Addresses first, loads
+// after: a thread's loads then issue back to back.
+__device__ __forceinline__ const uint32_t* level_ptr(const Tree& t, uint32_t level, uint32_t row,
+                                                     uint32_t col, uint32_t b, uint32_t bsz,
+                                                     int shard) {
+  uint64_t at;
+  const uint32_t* base;
+  if (level <= t.log_blk) {  // the levels of the (block's) tree
+    const uint32_t rows_log = t.log_blk - level;
+    const uint64_t n2 = uint64_t{2} << t.log_blk;
+    const uint64_t first = (t.sharded ? 1u : bsz) * (n2 - (n2 >> level));
+    if (t.sharded) {
+      if ((row >> rows_log) != static_cast<uint32_t>(shard)) return nullptr;
+      row &= (1u << rows_log) - 1u;
+      at = first + row;
+    } else {
+      if (shard > 0 || row >= (1u << rows_log)) return nullptr;
+      at = first + (static_cast<uint64_t>(b) << rows_log) + row;
+    }
+    base = t.levels;
+  } else {  // the whole levels above a shard's subtree
+    const uint32_t l2 = level - t.log_blk - 1;
+    const uint64_t r2 = uint64_t{2} << (t.log_n - t.log_blk - 1);
+    if (shard > 0 || row >= (r2 >> (l2 + 1))) return nullptr;
+    at = r2 - (r2 >> l2) + row;
+    base = t.top;
   }
-  const uint32_t log_size = a.arrays[k].log_size, sharded = a.arrays[k].sharded;
-  const uint32_t size = 1u << log_size;
-  bool own = a.shard <= 0;
-  if (sharded) {
-    own = (idx >> log_size) == static_cast<uint32_t>(a.shard);
-    idx &= size - 1u;
+  return base + at * 8 + col;
+}
+
+// The address of tree t's value at idx for proof b, or null where this shard
+// does not own it.
+__device__ __forceinline__ const uint32_t* value_ptr(const Tree& t, uint32_t idx, uint32_t b,
+                                                     int shard) {
+  uint64_t at = idx;
+  if (t.sharded) {
+    if ((idx >> t.log_blk) != static_cast<uint32_t>(shard)) return nullptr;
+    at = idx & ((1u << t.log_blk) - 1u);
+  } else {
+    if (shard > 0 || idx >= (1u << t.log_blk)) return nullptr;
+    at += static_cast<uint64_t>(b) << t.log_blk;
   }
-  uint32_t v = 0u;
-  if (own && idx < size) {
-    const int64_t at = (static_cast<int64_t>(sharded ? 0u : b) * size + idx) * row_words + col;
-    v = __ldg(a.arrays[k].ptr + at);
+  return t.values + at;
+}
+
+__device__ __forceinline__ uint32_t load_or_0(const uint32_t* p) { return p ? __ldg(p) : 0u; }
+
+template <int W>
+__global__ void __launch_bounds__(kThreads) openings_kernel(const __grid_constant__ Params<W> p) {
+  const uint32_t* w = p.w;
+  const uint32_t q = w[4];
+  const uint32_t b = blockIdx.y;
+  const uint32_t tid = threadIdx.x;
+  const uint32_t* queries = ptr_at(w, 0) + static_cast<uint64_t>(b) * w[8];
+  const int shard = static_cast<int>(w[5]);
+  const uint32_t bsz = w[6];
+  const uint32_t* trees = w + kHeader;
+  const uint32_t* seg = trees + kTree * w[7] + kSeg * blockIdx.x;
+  const uint32_t code = seg[1];
+  const uint32_t kind = code & 15u, ln = (code >> 4) & 15u, lg = (code >> 8) & 255u;
+  const uint32_t tree = (code >> 16) & 255u, n_idx = code >> 24;
+  const uint32_t per_proof = seg[2];
+  uint32_t* out = const_cast<uint32_t*>(ptr_at(w, 2)) + seg[0] +
+                  static_cast<uint64_t>(b) * per_proof;
+  if (kind == kCopy) {
+    const uint32_t* src = ptr_at(seg, 12) + static_cast<uint64_t>(b) * seg[3] + seg[4];
+    for (uint32_t i = tid; i < per_proof; i += kThreads) {
+      out[i] = shard > 0 ? 0u : __ldg(src + i);
+    }
+    return;
   }
-  a.out[i] = v;
+  if (kind == kRoots) {
+    for (uint32_t i = tid; i < per_proof; i += kThreads) {
+      const Tree t = tree_at(trees + kTree * (tree + (i >> 3)));
+      out[i] = load_or_0(level_ptr(t, t.log_n, 0u, i & 7u, b, bsz, shard));
+    }
+    return;
+  }
+  const Tree t = tree_at(seg + 12);
+  if (kind == kFirst) {
+    if (tid == 0) out[0] = load_or_0(value_ptr(t, 0u, b, shard));
+    return;
+  }
+  const uint32_t mask = seg[3];
+  const uint32_t slots = q << ln;  // query · 2^ln + slot, the slots padded to 2^ln
+  if (kind == kValues) {
+    for (uint32_t s = tid; s < slots; s += kThreads) {
+      const uint32_t qi = s >> ln, slot = s & ((1u << ln) - 1u);
+      if (slot >= n_idx) continue;
+      const uint32_t idx = ((__ldg(queries + qi) & mask) + seg[4 + slot]) & mask;
+      out[qi * n_idx + slot] = load_or_0(value_ptr(t, idx, b, shard));
+    }
+    return;
+  }
+  // kPaths: a slot takes 2^lg rows of 8 threads, row = level. A pass covers
+  // 2·step slots, each thread two of them, both loads issued before either
+  // store, so that a segment of up to 2·step slots waits on one round of
+  // loads (at stark-101 step is 4: the trace's 3 slots, a load a thread)
+  const uint32_t depth = t.log_n;
+  const uint32_t col = tid & 7u, row = tid >> 3;
+  const uint32_t level = row & ((1u << lg) - 1u);
+  const uint32_t step = kThreads >> (3 + lg);  // slots a pass
+  for (uint32_t s0 = row >> lg; s0 < slots; s0 += 2 * step) {
+    const uint32_t* src[2];
+    uint32_t at[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const uint32_t s = s0 + k * step;
+      const uint32_t qi = s >> ln, slot = s & ((1u << ln) - 1u);
+      src[k] = nullptr;
+      at[k] = ~0u;
+      if (s < slots && slot < n_idx && level < depth) {
+        const uint32_t idx = ((__ldg(queries + qi) & mask) + seg[4 + slot]) & mask;
+        src[k] = level_ptr(t, level, (idx >> level) ^ 1u, col, b, bsz, shard);
+        at[k] = ((qi * n_idx + slot) * depth + level) * 8u + col;
+      }
+    }
+    const uint32_t v0 = load_or_0(src[0]), v1 = load_or_0(src[1]);
+    if (at[0] != ~0u) out[at[0]] = v0;
+    if (at[1] != ~0u) out[at[1]] = v1;
+  }
+}
+
+template <int W>
+int launch(const uint32_t* words, int n_words, int n_segs, int bsz, cudaStream_t stream) {
+  Params<W> a{};
+  for (int i = 0; i < n_words; ++i) a.w[i] = words[i];
+  openings_kernel<W><<<dim3(static_cast<unsigned>(n_segs), static_cast<unsigned>(bsz)), kThreads,
+                       0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// queries: (batch, q) uint32 on the device; out: `total` words; segs: n_segs
-// host records of 14 uint32 (Seg); arrays: n_arrays host records of 16 bytes
-// (Array); shard: this shard's index, or -1 without a mesh.
-extern "C" int zk_openings(const uint32_t* queries, uint32_t* out, int64_t total, int batch,
-                           int q, int shard, const void* segs, int n_segs, const void* arrays,
-                           int n_arrays, cudaStream_t stream) {
-  if (total < 0 || total > 0x7fffffffLL || batch < 0 || q < 0 || n_segs < 1 ||
-      n_segs > kMaxSegs || n_arrays < 1 || n_arrays > kMaxArrays || shard < -1) {
+// words: the host's parameter block of n_words (ops/openings.py describe):
+// the header, the tree records, then n_segs segment records; one block of
+// threads per (segment, proof) of bsz proofs.
+extern "C" int zk_openings(const void* words, int n_words, int n_segs, int bsz,
+                           cudaStream_t stream) {
+  const uint32_t* w = static_cast<const uint32_t*>(words);
+  if (words == nullptr || n_segs < 1 || bsz < 1 || bsz > 65535 || n_words < kHeader ||
+      static_cast<int64_t>(w[6]) != bsz || static_cast<int64_t>(w[9]) != n_segs ||
+      n_words != kHeader + kTree * static_cast<int64_t>(w[7]) + kSeg * int64_t{n_segs}) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (total > 0) {
-    OpenArgs a{};
-    a.queries = queries;
-    a.out = out;
-    a.total = static_cast<uint32_t>(total);
-    a.batch = batch;
-    a.q = q;
-    a.n_segs = n_segs;
-    a.shard = shard;
-    const Seg* sg = static_cast<const Seg*>(segs);
-    const Array* ar = static_cast<const Array*>(arrays);
-    for (int s = 0; s < n_segs; ++s) {
-      const Seg& g = sg[s];
-      if (g.n_idx < 1 || g.n_idx > kMaxAdds || g.first >= static_cast<uint32_t>(n_arrays) ||
-          (g.path && g.first + g.depth >= static_cast<uint32_t>(n_arrays))) {
-        return static_cast<int>(cudaErrorInvalidValue);
-      }
-      a.segs[s] = g;
-    }
-    for (int k = 0; k < n_arrays; ++k) {
-      if (ar[k].log_size > 31) return static_cast<int>(cudaErrorInvalidValue);
-      a.arrays[k] = ar[k];
-    }
-    const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
-    openings_kernel<<<blocks, kThreads, 0, stream>>>(a);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (n_words <= 256) return launch<256>(w, n_words, n_segs, bsz, stream);
+  if (n_words <= 512) return launch<512>(w, n_words, n_segs, bsz, stream);
+  if (n_words <= 768) return launch<768>(w, n_words, n_segs, bsz, stream);
+  if (n_words <= 1024) return launch<1024>(w, n_words, n_segs, bsz, stream);
+  if (n_words <= 2048) return launch<2048>(w, n_words, n_segs, bsz, stream);
+  if (n_words <= 4096) return launch<4096>(w, n_words, n_segs, bsz, stream);
+  if (n_words <= 8188) return launch<8188>(w, n_words, n_segs, bsz, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

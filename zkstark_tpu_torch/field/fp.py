@@ -139,6 +139,37 @@ class Field:
                 order //= q
         return order
 
+    # -- device ops: the module's *_f functions, bound as methods ----------
+    def mont_mul(self, a, b):
+        return mont_mul_f(self, a, b)
+
+    def to_mont(self, a):
+        return to_mont_f(self, a)
+
+    def from_mont(self, a):
+        return from_mont_f(self, a)
+
+    def add(self, a, b):
+        return add_f(self, a, b)
+
+    def sub(self, a, b):
+        return sub_f(self, a, b)
+
+    def neg(self, a):
+        return neg_f(self, a)
+
+    def pow_static(self, a, e: int):
+        return pow_static_f(self, a, e)
+
+    def inv(self, a):
+        return inv_f(self, a)
+
+    def device_powers(self, base: int, n: int, device="cuda"):
+        return device_powers_f(self, base, n, device)
+
+    def powers_iota(self, base: int, n: int, scale: int = 1, device="cuda"):
+        return powers_iota_f(self, base, n, scale, device)
+
     def mont_scalar(self, v: int) -> int:
         """to_mont of one host residue, as a Python int."""
         return int(self.host_to_mont(np.array([v % self.p], np.uint32))[0])
@@ -398,30 +429,19 @@ def inv_f(f: Field, a):
 
 
 def powers_iota_f(f: Field, base: int, n: int, scale: int = 1, device="cpu"):
-    """[scale·base^j for j < n] in Montgomery form, each element built from
-    its own index bits: base^j = Π_b (base^{2^b})^{j_b}."""
+    """[scale·base^j for j < n] in Montgomery form on `device`, n a power of
+    two: the `powers` kernel on a card (``ops/powers.py``), on the CPU its
+    plain twin, each element from its own index bits."""
     assert n >= 1 and n & (n - 1) == 0
-    bits = max(n.bit_length() - 1, 1)
-    j = torch.arange(n, dtype=torch.int64, device=device)
-    acc = torch.full((n,), f.mont_scalar(scale), dtype=torch.int64, device=device)
-    one = torch.tensor(f.r_mod_p, dtype=torch.int64, device=device)
-    for b in range(bits):
-        step = torch.tensor(
-            f.mont_scalar(pow(base, 1 << b, f.p)), dtype=torch.int64, device=device
-        )
-        acc = mont_mul_w(f, acc, torch.where(((j >> b) & 1) == 1, step, one))
-    return narrow(acc)
+    from zkstark_tpu_torch.ops import powers
+
+    return powers.powers(f, base, n, scale, resolve_device(device))
 
 
 def device_powers_f(f: Field, base: int, n: int, device="cuda"):
     """[1, base, …, base^{n-1}] in Montgomery form on `device`, n a power of
-    two, by log-doubling: log2(n) products of the prefix by base^length."""
-    assert n >= 1 and n & (n - 1) == 0
-    arr = torch.full((1,), f.r_mod_p, dtype=torch.int64, device=resolve_device(device))
-    while arr.shape[0] < n:
-        step = f.mont_scalar(pow(base, arr.shape[0], f.p))
-        arr = torch.cat([arr, mont_mul_w(f, arr, step)])
-    return narrow(arr)
+    two: `powers_iota_f` with scale 1."""
+    return powers_iota_f(f, base, n, 1, device)
 
 
 # ---------------------------------------------------------------------------
@@ -444,7 +464,7 @@ def device_powers(base: int, n: int, device="cuda"):
 
 
 def powers_iota(base: int, n: int, scale: int = 1, device="cuda"):
-    return powers_iota_f(FIELD101, base, n, scale, resolve_device(device))
+    return powers_iota_f(FIELD101, base, n, scale, device)
 
 
 def host_pow(base: int, e: int, modulus: int = P) -> int:

@@ -13,6 +13,7 @@ from zkstark_tpu_torch.ops import (
     limb_dft,
     ntt_kernel,
     openings,
+    powers,
     sha256_kernel,
 )
 
@@ -35,6 +36,7 @@ def launch_counts() -> dict:
         "endpoint_fix": elementwise.endpoint_launches,
         "from_mont": elementwise.from_mont_launches,
         "constants": constants.constants_launches,
+        "powers": powers.powers_launches,
     }
 
 
@@ -55,3 +57,4 @@ def reset_launch_counts() -> None:
     elementwise.endpoint_launches = 0
     elementwise.from_mont_launches = 0
     constants.constants_launches = 0
+    powers.powers_launches = 0

@@ -61,9 +61,10 @@ _SIGNATURES = {
         _P, _P, _INT, _U32, _U32, _P, _P, _INT, _U32, _U32,
         _P, _P, _INT, _U32, _INT, _U32, _INT, _U32, _U32, _P,
     ),
-    # (state_in, state_out, digest, digest_stride, word, n_draws, draws, mont, mod,
-    #  query_range, r2, p, p_inv_neg, chains, stream)
-    "zk_fs_chain": (_P, _P, _P, _I64, _P, _INT, _P, _P, _P, _U32, _U32, _U32, _U32, _I64, _P),
+    # (state_in, state_out, digest, digest_stride, word, word_stride, n_draws, draws,
+    #  draws_stride, mont, mod, mod_stride, query_range, r2, p, p_inv_neg, chains, stream)
+    "zk_fs_chain": (_P, _P, _P, _I64, _P, _I64, _INT, _P, _I64, _P, _P, _I64, _U32, _U32, _U32,
+                    _U32, _I64, _P),
     # (evals, beta, geo_a, geo_b, geo_shift, folded, res, batch, half, scale, inv2,
     #  p, p_inv_neg, stream)
     "zk_fri_fold": (_P, _P, _P, _P, _INT, _P, _P, _I64, _I64, _U32, _U32, _U32, _U32, _P),
@@ -89,9 +90,10 @@ _SIGNATURES = {
     # (words, n_words, ztab, zmask, geo_a, geo_b, geo_shift, offset, one, out, d,
     #  p, p_inv_neg, stream); words is host memory
     "zk_constants": (_P, _INT, _INT, _INT, _P, _P, _INT, _U32, _U32, _P, _I64, _U32, _U32, _P),
-    # (queries, out, total, batch, q, shard, segs, n_segs, arrays, n_arrays, stream);
-    # segs and arrays are host memory
-    "zk_openings": (_P, _P, _I64, _INT, _INT, _INT, _P, _INT, _P, _INT, _P),
+    # (words, n_words, n_segs, batch, stream); words is host memory
+    "zk_openings": (_P, _INT, _INT, _INT, _P),
+    # (out, n, table a, table b, shift, p, p_inv_neg, stream)
+    "zk_powers": (_P, _I64, _P, _P, _INT, _U32, _U32, _P),
     # (a, b, out, n, p, p_inv_neg, stream)
     "zk_fp_check": (_P, _P, _P, _I64, _U32, _U32, _P),
     # (stream)
@@ -191,8 +193,23 @@ def check(rc: int, what: str) -> None:
 
 
 def stream(t: torch.Tensor) -> int:
-    """The handle of the current stream on t's device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of the current stream on t's device (the raw handle, as
+    torch's own generated code reads it: no Stream object is built)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def out_tensor(out: torch.Tensor | None, shape: tuple, like: torch.Tensor, what: str,
+               align: int = 4) -> torch.Tensor:
+    """A wrapper's `out=` argument, checked to be a contiguous uint32 tensor
+    of `shape` on `like`'s device (aligned to `align` bytes on a card), or a
+    new one if None."""
+    if out is None:
+        return torch.empty(shape, dtype=torch.uint32, device=like.device)
+    if (out.dtype != torch.uint32 or tuple(out.shape) != tuple(shape) or not out.is_contiguous()
+            or out.device != like.device or (out.is_cuda and out.data_ptr() % align)):
+        raise ValueError(f"{what}: out= must be a contiguous uint32 {tuple(shape)} tensor on "
+                         f"{like.device}, {align}-byte aligned")
+    return out
 
 
 def require(t: torch.Tensor, what: str, ndim: int) -> None:

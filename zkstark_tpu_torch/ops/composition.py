@@ -212,11 +212,14 @@ def _alpha_tensor(alphas, batch: int, n: int, device) -> torch.Tensor:
 
 
 def composition(f_eval: torch.Tensor, inv_dens: torch.Tensor, alphas, prog: Program,
-                field: Field = FIELD101, *, halo: torch.Tensor | None = None, start: int = 0):
+                field: Field = FIELD101, *, halo: torch.Tensor | None = None, start: int = 0,
+                res_out: torch.Tensor | None = None):
     """f_eval (…, d) uint32 Montgomery residues, the leading axes independent
     proofs; inv_dens (n_constraints, d) the inverse denominators; alphas
     Montgomery-form ints, one per constraint, or a (…, n_constraints) uint32
-    tensor on f_eval's device. Returns (cp_eval, cp_res), each (…, d).
+    tensor on f_eval's device. Returns (cp_eval, cp_res), each (…, d), the
+    residues written into `res_out` where given (the tree's values at the
+    head of its one allocation: `hash.merkle.tree_values`).
 
     A shard: f_eval (…, len) holds points start … start + len − 1 and `halo`
     (…, hlen) the words that follow them cyclically, hlen at least the
@@ -247,14 +250,17 @@ def composition(f_eval: torch.Tensor, inv_dens: torch.Tensor, alphas, prog: Prog
                              "proof) on the evaluations' device")
     elif len(alphas) != n:
         raise ValueError(f"composition: {len(alphas)} alphas for {n} constraints")
+    res = _build.out_tensor(res_out, tuple(lead) + (points,), f_eval, "composition")
     if f_eval.device.type == "cpu":
-        return composition_plain(f_eval, inv_dens, alphas, prog, field, halo=halo, start=start)
+        cp, plain = composition_plain(f_eval, inv_dens, alphas, prog, field, halo=halo,
+                                      start=start)
+        return cp, res.copy_(plain)
     _build.require(f_eval, "composition", f_eval.dim())
     _build.require(inv_dens, "composition", 2)
     if batch > 65535:
         raise ValueError(f"composition: {batch} proofs in one call (at most 65535)")
     dev = f_eval.device
-    out = torch.empty((2, batch, points), dtype=torch.uint32, device=dev)
+    cp = torch.empty(tuple(lead) + (points,), dtype=torch.uint32, device=dev)
     if batch:
         words = _device_words(prog, dev)
         ga, gb, shift = ntt_kernel._geo_tables(prog.generator, d, field, dev)
@@ -273,8 +279,8 @@ def composition(f_eval: torch.Tensor, inv_dens: torch.Tensor, alphas, prog: Prog
                 gb.data_ptr(),
                 shift,
                 field.mont_scalar(prog.offset),
-                out[0].data_ptr(),
-                out[1].data_ptr(),
+                cp.data_ptr(),
+                res.data_ptr(),
                 batch,
                 points,
                 start,
@@ -285,4 +291,4 @@ def composition(f_eval: torch.Tensor, inv_dens: torch.Tensor, alphas, prog: Prog
             )
         _build.check(rc, "composition")
         composition_launches += 1
-    return out[0].reshape(lead + (points,)), out[1].reshape(lead + (points,))
+    return cp, res

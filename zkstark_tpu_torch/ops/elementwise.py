@@ -43,16 +43,17 @@ def from_mont_plain(x: torch.Tensor, field: Field = FIELD101) -> torch.Tensor:
     return fp.from_mont_f(field, x)
 
 
-def from_mont(x: torch.Tensor, field: Field = FIELD101) -> torch.Tensor:
+def from_mont(x: torch.Tensor, field: Field = FIELD101, out: torch.Tensor | None = None):
     """Montgomery form → standard residues, word by word, of a uint32 tensor
-    of any shape; a new tensor."""
+    of any shape, written into `out` where given (a tree's values, at the head
+    of its one allocation: `hash.merkle.tree_values`), else a new tensor."""
     global from_mont_launches
     if x.dtype != torch.uint32:
         raise TypeError(f"from_mont: needs torch.uint32, got {x.dtype}")
+    out = _build.out_tensor(out, tuple(x.shape), x, "from_mont")
     if x.device.type == "cpu":
-        return from_mont_plain(x, field)
+        return out.copy_(from_mont_plain(x, field))
     _build.require(x, "from_mont", x.dim())
-    out = torch.empty_like(x)
     if x.numel():
         with torch.cuda.device(x.device):
             rc = _build.kernels().zk_from_mont(

@@ -57,11 +57,14 @@ def fri_fold_plain(evals, beta, inv_base: int, inv_off: int, field: Field = FIEL
     return fp.narrow(folded), fp.narrow(fp.redc_w(field, 0, folded))
 
 
-def fri_fold(evals: torch.Tensor, beta, inv_base: int, inv_off: int, field: Field = FIELD101):
+def fri_fold(evals: torch.Tensor, beta, inv_base: int, inv_off: int, field: Field = FIELD101,
+             res_out: torch.Tensor | None = None):
     """evals (…, m) uint32 Montgomery residues, m ≥ 2 a power of two; beta a
     uint32 Montgomery tensor with one element per leading index of evals (or
     a Python int for all); inv_base, inv_off standard-form residues with
-    1/x_j = inv_off·inv_base^j. Returns (folded, res), each (…, m/2)."""
+    1/x_j = inv_off·inv_base^j. Returns (folded, res), each (…, m/2), the
+    residues written into `res_out` where given (the layer tree's values at
+    the head of its one allocation: `hash.merkle.tree_values`)."""
     global fold_launches
     if evals.dtype != torch.uint32 or evals.dim() < 1:
         raise TypeError(f"fri_fold: needs a uint32 tensor, got {evals.dtype} {tuple(evals.shape)}")
@@ -73,14 +76,16 @@ def fri_fold(evals: torch.Tensor, beta, inv_base: int, inv_off: int, field: Fiel
     if isinstance(beta, torch.Tensor) and (beta.dtype != torch.uint32 or beta.numel() != batch
                                            or beta.device != evals.device):
         raise ValueError("fri_fold: beta must hold one uint32 per proof on the evals' device")
+    half = m // 2
+    res = _build.out_tensor(res_out, tuple(lead) + (half,), evals, "fri_fold")
     if evals.device.type == "cpu":
-        return fri_fold_plain(evals, beta, inv_base, inv_off, field)
+        folded, plain = fri_fold_plain(evals, beta, inv_base, inv_off, field)
+        return folded, res.copy_(plain)
     _build.require(evals, "fri_fold", evals.dim())
     if batch > 65535:
         raise ValueError(f"fri_fold: {batch} proofs in one call (at most 65535)")
-    half = m // 2
     dev = evals.device
-    out = torch.empty((2, batch, half), dtype=torch.uint32, device=dev)
+    folded = torch.empty(tuple(lead) + (half,), dtype=torch.uint32, device=dev)
     if batch:
         ga, gb, shift = ntt_kernel._geo_tables(inv_base % field.p, half, field, dev)
         beta_t = _beta_tensor(beta, batch, dev)
@@ -93,8 +98,8 @@ def fri_fold(evals: torch.Tensor, beta, inv_base: int, inv_off: int, field: Fiel
                 ga.data_ptr(),
                 gb.data_ptr(),
                 shift,
-                out[0].data_ptr(),
-                out[1].data_ptr(),
+                folded.data_ptr(),
+                res.data_ptr(),
                 batch,
                 half,
                 field.mont_scalar(inv2 * inv_off % p),
@@ -105,4 +110,4 @@ def fri_fold(evals: torch.Tensor, beta, inv_base: int, inv_off: int, field: Fiel
             )
         _build.check(rc, "fri_fold")
         fold_launches += 1
-    return out[0].reshape(lead + (half,)), out[1].reshape(lead + (half,))
+    return folded, res

@@ -27,7 +27,8 @@ chain_launches = 0  # launches of fs_chain_kernel, counted by chain_step
 
 
 def chain_step_plain(state, *, digest=None, word=None, draws: int = 0,
-                     field: Field = FIELD101, query_range: int | None = None):
+                     field: Field = FIELD101, query_range: int | None = None, draws_out=None,
+                     mod_out=None):
     """Plain-torch twin of the kernel, same arguments and results."""
     lead = state.shape[:-1]
     if digest is not None:
@@ -44,16 +45,24 @@ def chain_step_plain(state, *, digest=None, word=None, draws: int = 0,
         out = fp.zeros(lead + (0,), state.device)
     mont = dc.draw_to_mont(out, field)
     mod = None if query_range is None else fp.narrow(fp.wide(out) % query_range)
+    if draws_out is not None:
+        out = draws_out.copy_(out)
+    if mod_out is not None:
+        mod = mod_out.copy_(mod)
     return state, out, mont, mod
 
 
 def chain_step(state: torch.Tensor, *, digest=None, word=None, draws: int = 0,
-               field: Field = FIELD101, query_range: int | None = None):
+               field: Field = FIELD101, query_range: int | None = None, draws_out=None,
+               mod_out=None):
     """state (…, 8) uint32 → (state', draws, mont, mod) after committing
     `digest` ((…, 8) uint32, any row stride), then `word` ((…,) uint32, a
-    little-endian u32 commit), then drawing `draws` challenges. draws, mont
-    and mod are (…, draws) uint32: the raw draws, their Montgomery forms over
-    `field`, and (with `query_range`, else None) the draws modulo it."""
+    little-endian u32 commit, any stride), then drawing `draws` challenges.
+    draws, mont and mod are (…, draws) uint32: the raw draws, their
+    Montgomery forms over `field`, and (with `query_range`, else None) the
+    draws modulo it; the first and the last are written into `draws_out` and
+    `mod_out` where given, (…, draws) views whose rows are evenly strided
+    (columns of the fused core's draws)."""
     global chain_launches
     if state.dtype != torch.uint32 or state.dim() < 1 or state.shape[-1] != 8:
         raise ValueError(f"fs_chain: needs a (…, 8) uint32 state, got {state.dtype} {tuple(state.shape)}")
@@ -65,9 +74,16 @@ def chain_step(state: torch.Tensor, *, digest=None, word=None, draws: int = 0,
             raise ValueError(f"fs_chain: {name} must be uint32 {tuple(shape)} on the state's device")
     if draws < 0 or (query_range is not None and not 0 < query_range < 1 << 32):
         raise ValueError("fs_chain: bad draw count or query range")
+    for name, t in (("draws_out", draws_out), ("mod_out", mod_out)):
+        if t is not None and (t.dtype != torch.uint32 or t.shape != lead + (draws,)
+                              or t.device != state.device or (draws and t.stride(-1) != 1)):
+            raise ValueError(f"fs_chain: {name} must be a uint32 {tuple(lead) + (draws,)} view "
+                             "with unit column stride on the state's device")
+    if mod_out is not None and query_range is None:
+        raise ValueError("fs_chain: mod_out without a query range")
     if state.device.type == "cpu":
         return chain_step_plain(state, digest=digest, word=word, draws=draws, field=field,
-                                query_range=query_range)
+                                query_range=query_range, draws_out=draws_out, mod_out=mod_out)
     _build.require(state, "fs_chain state", state.dim())
     chains = state.numel() // 8
     dev = state.device
@@ -76,10 +92,13 @@ def chain_step(state: torch.Tensor, *, digest=None, word=None, draws: int = 0,
         if digest.stride(1) != 1 and chains:
             digest = fp.as_u32(fp.as_i32(digest).contiguous())
     if word is not None:
-        word = fp.as_u32(fp.as_i32(word).reshape(chains).contiguous())
+        word = word.reshape(chains)  # a view where the words are evenly strided
     new = torch.empty((chains, 8), dtype=torch.uint32, device=dev)
     out = torch.empty((3 if query_range is not None else 2, chains, draws),
                       dtype=torch.uint32, device=dev)
+    rows = out[0] if draws_out is None else _rows(draws_out, chains, draws, "draws_out")
+    mods = None if query_range is None else (
+        out[2] if mod_out is None else _rows(mod_out, chains, draws, "mod_out"))
     if chains:
         with torch.cuda.device(dev):
             rc = _build.kernels().zk_fs_chain(
@@ -88,10 +107,13 @@ def chain_step(state: torch.Tensor, *, digest=None, word=None, draws: int = 0,
                 None if digest is None else digest.data_ptr(),
                 0 if digest is None else (digest.stride(0) if chains > 1 else 8),
                 None if word is None else word.data_ptr(),
+                0 if word is None else word.stride(0),
                 draws,
-                out[0].data_ptr(),
+                rows.data_ptr(),
+                rows.stride(0) if chains > 1 else draws,
                 out[1].data_ptr(),
-                out[2].data_ptr() if query_range is not None else None,
+                None if mods is None else mods.data_ptr(),
+                0 if mods is None else (mods.stride(0) if chains > 1 else draws),
                 query_range or 0,
                 field.r2_mod_p,
                 field.p,
@@ -102,7 +124,17 @@ def chain_step(state: torch.Tensor, *, digest=None, word=None, draws: int = 0,
         _build.check(rc, "fs_chain")
         chain_launches += 1
     parts = [t.reshape(lead + (draws,)) for t in out]
-    return new.reshape(state.shape), parts[0], parts[1], parts[2] if query_range is not None else None
+    raw = parts[0] if draws_out is None else draws_out
+    mod = None if query_range is None else (parts[2] if mod_out is None else mod_out)
+    return new.reshape(state.shape), raw, parts[1], mod
+
+
+def _rows(view: torch.Tensor, chains: int, draws: int, name: str) -> torch.Tensor:
+    """A (…, draws) view as (chains, draws) rows that are evenly strided."""
+    rows = view.reshape(chains, draws)
+    if draws and chains > 1 and rows.data_ptr() != view.data_ptr():
+        raise ValueError(f"fs_chain: {name}'s rows must be evenly strided")
+    return rows
 
 
 def absorb_hash(state, digest):

@@ -67,14 +67,15 @@ def node_hash_pairs_plain(children: torch.Tensor) -> torch.Tensor:
     return sha256.node_hash(children[0::2], children[1::2])
 
 
-def leaf_hash(values: torch.Tensor) -> torch.Tensor:
-    """(n,) uint32 → (n, 8) uint32 leaf digests."""
+def leaf_hash(values: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """(n,) uint32 → (n, 8) uint32 leaf digests, written into `out` where
+    given (a view into a tree's one allocation)."""
     global leaf_launches
     _build.require(values, "sha256_leaf", 1)
-    if values.device.type == "cpu":
-        return leaf_hash_plain(values)
     n = values.shape[0]
-    out = torch.empty((n, 8), dtype=torch.uint32, device=values.device)
+    out = _build.out_tensor(out, (n, 8), values, "sha256_leaf", 16)
+    if values.device.type == "cpu":
+        return out.copy_(leaf_hash_plain(values))
     if n == 0:
         return out
     lib = _build.kernels()
@@ -87,19 +88,19 @@ def leaf_hash(values: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def node_hash_pairs(children: torch.Tensor) -> torch.Tensor:
+def node_hash_pairs(children: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """(2k, 8) child digests → (k, 8) parents; parent j =
-    SHA256(child 2j ‖ child 2j+1)."""
+    SHA256(child 2j ‖ child 2j+1), written into `out` where given."""
     global node_launches
     _build.require(children, "sha256_node", 2)
     if children.shape[1] != 8 or children.shape[0] % 2:
         raise ValueError(f"sha256_node: needs (2k, 8) digests, got {tuple(children.shape)}")
-    if children.device.type == "cpu":
-        return node_hash_pairs_plain(children)
     k = children.shape[0] // 2
+    out = _build.out_tensor(out, (k, 8), children, "sha256_node", 16)
+    if children.device.type == "cpu":
+        return out.copy_(node_hash_pairs_plain(children))
     if children.data_ptr() % 16:
         raise ValueError("sha256_node: digests must be 16-byte aligned")
-    out = torch.empty((k, 8), dtype=torch.uint32, device=children.device)
     if k == 0:
         return out
     lib = _build.kernels()
@@ -231,31 +232,35 @@ def tree_tail_plain(level: torch.Tensor, trees: int, from_values: bool = False) 
     return levels
 
 
-def tree_tail(level: torch.Tensor, trees: int, from_values: bool = False) -> list:
+def tree_tail(level: torch.Tensor, trees: int, from_values: bool = False,
+              out: torch.Tensor | None = None) -> list:
     """Every level of `trees` Merkle trees above `level` in one launch.
 
     `level` holds 2t children a tree, tree after tree, t ≤ `TAIL_PARENTS` a
     power of two: (trees·2t, 8) uint32 digests, or with `from_values`
     (trees·2t,) uint32 residues, whose leaf digests then come first in the
     result. Returns [(trees, t, 8), (trees, t/2, 8), …, (trees, 1, 8)], views
-    of one buffer that holds the levels back to back, each contiguous and
-    16-byte aligned."""
+    of one flat buffer that holds the levels back to back, each contiguous and
+    16-byte aligned: `out` where given (the tail of a tree's one allocation),
+    else a new one."""
     global tail_launches
     t = _tail_check(level, trees, from_values)
+    sizes = ([2 * t] if from_values else []) + [t >> i for i in range(t.bit_length())]
+    out = _build.out_tensor(out, (trees * 8 * sum(sizes),), level, "sha256_tree_tail", 16)
+    levels, at = [], 0
+    for k in sizes:
+        levels.append(out[at : at + trees * k * 8].view(trees, k, 8))
+        at += trees * k * 8
     if level.device.type == "cpu":
-        return tree_tail_plain(level, trees, from_values)
+        for view, plain in zip(levels, tree_tail_plain(level, trees, from_values)):
+            view.copy_(plain)
+        return levels
     if level.data_ptr() % (8 if from_values else 16):
         raise ValueError("sha256_tree_tail: residues must be 8-byte, digests 16-byte aligned")
-    sizes = ([2 * t] if from_values else []) + [t >> i for i in range(t.bit_length())]
-    out = torch.empty(trees * 8 * sum(sizes), dtype=torch.uint32, device=level.device)
     with torch.cuda.device(level.device):
         rc = _build.kernels().zk_sha256_tree_tail(
             level.data_ptr(), out.data_ptr(), trees, t, int(from_values), _build.stream(level)
         )
     _build.check(rc, "sha256_tree_tail")
     tail_launches += 1
-    levels, at = [], 0
-    for k in sizes:
-        levels.append(out[at : at + trees * k * 8].view(trees, k, 8))
-        at += trees * k * 8
     return levels

@@ -17,15 +17,18 @@ here:
     gathered;
   * a fold is sharded while m/2 ≥ S (``parallel/fri_sharded.py``); below,
     the layer is gathered and folded whole, as the JAX package does;
-  * the openings: each shard gathers the values and auth-path siblings it
-    owns in one launch (owner masks in the kernel), shard 0 those of whole
-    levels, and one `replicate` makes the packed result whole on every
-    process.
+  * the packed result: each shard writes the values and auth-path siblings
+    it owns in one launch (owner masks in the kernel), shard 0 those of whole
+    levels, the roots, the draws and the free term, and one `replicate`
+    makes it whole on every process.
 
 `proof_core(cfg, mesh)` is phases 1–3 with the challenges as inputs.
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
@@ -41,12 +44,7 @@ from zkstark_tpu_torch.parallel.ntt_sharded import coset_ntt_sixstep
 from zkstark_tpu_torch.protocol import air
 from zkstark_tpu_torch.protocol import prover as pr
 from zkstark_tpu_torch.protocol.config import StarkConfig
-from zkstark_tpu_torch.protocol.openings import (
-    opening_shapes,
-    sparse_openings_device,
-    sparse_openings_packed,
-    unpack_tree,
-)
+from zkstark_tpu_torch.protocol.openings import packed_result
 
 
 def lde(cfg: StarkConfig, coeffs: torch.Tensor, mesh: Mesh | None):
@@ -56,21 +54,36 @@ def lde(cfg: StarkConfig, coeffs: torch.Tensor, mesh: Mesh | None):
     return coset_ntt_sixstep(coeffs[0], cfg.eval_domain, cfg.coset_offset, mesh, cfg.field)
 
 
-def from_mont(cfg: StarkConfig, value):
-    """The standard residues of a whole or sharded value (``ops/elementwise.py``:
-    one launch a tensor or block on a card)."""
-    if isinstance(value, list):
-        return [elementwise.from_mont(b, cfg.field) for b in value]
-    return elementwise.from_mont(value, cfg.field)
+def _tree_values(shape: tuple, device) -> tuple:
+    """`merkle.tree_values` in `shape` (…, n): (values, room), the values
+    at the head of their tree's one allocation."""
+    values, room = merkle.tree_values(math.prod(shape[:-1]), shape[-1], device)
+    return values.view(shape), room
 
 
-def build_levels(res, mesh: Mesh | None) -> list:
+def build_levels(res, mesh: Mesh | None, room: torch.Tensor | None = None) -> list:
     """The tree's levels, leaf level first, each (B, k, 8) where whole:
     sharded below the subtree roots where `res` is; `levels[-1][:, 0]` is
-    the (B, 8) root."""
+    the (B, 8) root. A whole `res` made by `_tree_values` passes its `room`,
+    where the levels are written after it."""
     if isinstance(res, list):
-        return [lv if isinstance(lv, list) else lv[None] for lv in sharded_build_levels(res, mesh)]
-    return merkle.build_levels_batch(res)
+        levels = sharded_build_levels(res, mesh)  # a ShardedLevels: keep its buffers
+        levels[:] = [lv if isinstance(lv, list) else lv[None] for lv in levels]
+        return levels
+    return merkle.build_levels_batch(res, room)
+
+
+def commit_lde(cfg: StarkConfig, f_eval, mesh: Mesh | None) -> tuple:
+    """Phase 1's commitment, (f_res, f_levels): the standard residues of a
+    whole or sharded f_eval (``ops/elementwise.py``: one launch a tensor or
+    block on a card) and their tree; a whole one in one allocation with its
+    levels (`merkle.tree_values`)."""
+    if isinstance(f_eval, list):
+        res = [elementwise.from_mont(b, cfg.field) for b in f_eval]
+        return res, build_levels(res, mesh)
+    res, room = _tree_values(f_eval.shape, f_eval.device)
+    elementwise.from_mont(f_eval, cfg.field, out=res)
+    return res, build_levels(res, mesh, room)
 
 
 def halo_words(cfg: StarkConfig) -> int:
@@ -79,17 +92,21 @@ def halo_words(cfg: StarkConfig) -> int:
 
 
 def composition(cfg: StarkConfig, f_eval, alphas_mont, mesh: Mesh | None):
-    """(cp_eval, cp_res) of `prover.composition_eval_res`, whole or sharded
-    like f_eval."""
+    """(cp_eval, cp_res, cp_levels): `prover.composition_eval_res`, whole
+    or sharded like f_eval, and the tree of the residues (a whole one in one
+    allocation with its levels)."""
     if not isinstance(f_eval, list):
-        return pr.composition_eval_res(cfg, f_eval, alphas_mont)
+        res, room = _tree_values(f_eval.shape, f_eval.device)
+        cp, res = pr.composition_eval_res(cfg, f_eval, alphas_mont, res_out=res)
+        return cp, res, build_levels(res, None, room)
     s_count = mesh.size
     points = cfg.eval_domain // s_count
     reach = halo_words(cfg)
     if points < reach:  # the halo would span shards: the whole domain, gathered
         cp, res = pr.composition_eval_res(cfg, mesh.all_gather(f_eval)[None],
                                           alphas_mont.reshape(1, -1))
-        return mesh.shard(cp[0]), mesh.shard(res[0])
+        res = mesh.shard(res[0])
+        return mesh.shard(cp[0]), res, build_levels(res, mesh)
     if reach:
         halos = mesh.exchange([b[:reach] for b in f_eval], lambda s: [(s - 1) % s_count])
     else:
@@ -100,7 +117,8 @@ def composition(cfg: StarkConfig, f_eval, alphas_mont, mesh: Mesh | None):
         comp_op.composition(blk, inv, alphas_mont, prog, cfg.field, halo=halo, start=t * points)
         for t, blk, halo in zip(mesh.local, f_eval, halos)
     ]
-    return [o[0] for o in out], [o[1] for o in out]
+    res = [o[1] for o in out]
+    return [o[0] for o in out], res, build_levels(res, mesh)
 
 
 def fold(cfg: StarkConfig, layer: int, evals, beta_mont, mesh: Mesh | None):
@@ -111,8 +129,10 @@ def fold(cfg: StarkConfig, layer: int, evals, beta_mont, mesh: Mesh | None):
         inv_base, inv_off = pr._fri_layer_params(cfg, layer)
         folded, res = fold_sharded(evals, beta_mont, inv_base, inv_off, mesh, cfg.field)
         return folded, res, build_levels(res, mesh)
-    return pr.fri_fold_eval(cfg, layer, whole(evals, mesh), beta_mont,
-                            build=merkle.build_levels_batch)
+    evals = whole(evals, mesh)
+    res, room = _tree_values(evals.shape[:-1] + (evals.shape[-1] // 2,), evals.device)
+    return pr.fri_fold_eval(cfg, layer, evals, beta_mont, res_out=res,
+                            build=functools.partial(merkle.build_levels_batch, room=room))
 
 
 def whole(value, mesh: Mesh | None) -> torch.Tensor:
@@ -120,19 +140,17 @@ def whole(value, mesh: Mesh | None) -> torch.Tensor:
     return mesh.all_gather(value)[None] if isinstance(value, list) else value
 
 
-def openings(cfg: StarkConfig, f_res, f_levels, layer_res, layer_levels, queries,
-             mesh: Mesh | None) -> dict:
-    """`openings.sparse_openings_device` at the (B, q) queries. On a mesh:
-    each local shard's owned words in one kernel launch, made whole on every
-    process by one `replicate`, and unpacked into views of that vector."""
+def packed(cfg: StarkConfig, f_res, f_levels, layer_res, layer_levels, draws,
+           mesh: Mesh | None) -> torch.Tensor:
+    """The fused core's packed result (`openings.packed_result`): one kernel
+    launch; on a mesh one a local shard, each writing the words it owns (shard
+    0 the whole ones), made whole on every process by one `replicate`."""
     if mesh is None:
-        return sparse_openings_device(cfg, f_res, f_levels, layer_res, layer_levels, queries)
-    parts = [
-        sparse_openings_packed(cfg, f_res, f_levels, layer_res, layer_levels, queries,
-                               shard=shard, block=i)
+        return packed_result(cfg, f_res, f_levels, layer_res, layer_levels, draws)
+    return mesh.replicate([
+        packed_result(cfg, f_res, f_levels, layer_res, layer_levels, draws, shard=shard, block=i)
         for i, shard in enumerate(mesh.local)
-    ]
-    return unpack_tree(mesh.replicate(parts), opening_shapes(cfg, tuple(queries.shape[:-1])))
+    ])
 
 
 def proof_core(cfg: StarkConfig, mesh: Mesh | None = None):
@@ -147,10 +165,10 @@ def proof_core(cfg: StarkConfig, mesh: Mesh | None = None):
     def fn(trace_mont, alphas_mont, betas_mont):
         coeffs = air.interpolate_trace(trace_mont[None], cfg.trace_domain, fld)
         f_eval = lde(cfg, coeffs, mesh)
-        roots = [build_levels(from_mont(cfg, f_eval), mesh)[-1][:, 0]]
-        evals, res = composition(cfg, f_eval, alphas_mont[None], mesh)
+        roots = [commit_lde(cfg, f_eval, mesh)[1][-1][:, 0]]
+        evals, res, levels = composition(cfg, f_eval, alphas_mont[None], mesh)
         del f_eval
-        roots.append(build_levels(res, mesh)[-1][:, 0])
+        roots.append(levels[-1][:, 0])
         for layer in range(cfg.fri_rounds):
             evals, res, levels = fold(cfg, layer, evals, betas_mont[layer : layer + 1], mesh)
             roots.append(levels[-1][:, 0])

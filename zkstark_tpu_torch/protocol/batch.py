@@ -44,7 +44,7 @@ def _dispatch_batch(cfg: StarkConfig, secrets, device: torch.device) -> fused.Pe
     """Witness check, upload, and one fused batch enqueued; does not wait for
     the device."""
     traces_mont = pr.upload(_witnesses(cfg, secrets), device)
-    return fused.PendingFetch(fused.pack_tree(fused_core_batch(cfg, traces_mont)))
+    return fused.PendingFetch(fused.fused_core_batch_packed(cfg, traces_mont))
 
 
 def _finish_batch(cfg: StarkConfig, secrets, words: np.ndarray) -> list[Proof]:
@@ -101,7 +101,7 @@ def _prove_batch_mesh(cfg: StarkConfig, secrets: list, mesh, data_axis) -> list[
         if g is not None:
             chunk = secrets[g * per : (g + 1) * per]
             traces = _witnesses(cfg, chunk, offset=g * per)
-            flat = fused.pack_tree(fused_core_batch(cfg, pr.upload(traces, mesh.device)))
+            flat = fused.fused_core_batch_packed(cfg, pr.upload(traces, mesh.device))
             part[g].copy_(fp.as_i32(flat))
         parts.append(part)
     whole = fused.PendingFetch(mesh.replicate(parts).reshape(-1)).wait().reshape(groups, size)

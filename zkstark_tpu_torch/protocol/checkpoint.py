@@ -29,6 +29,7 @@ import zipfile
 import numpy as np
 
 from zkstark_tpu_torch.field import fp
+from zkstark_tpu_torch.hash import merkle
 from zkstark_tpu_torch.protocol import prover as pr
 from zkstark_tpu_torch.protocol.config import StarkConfig
 from zkstark_tpu_torch.protocol.proof import Proof
@@ -36,7 +37,8 @@ from zkstark_tpu_torch.transcript import Channel
 
 FORMAT_VERSION = 1
 _HEADER = ("__phase__", "__state__", "__data__", "__fp__", "__check__")
-# the arrays each barrier leaves for the phases after it
+# the arrays each barrier (each of `ResumableProver.PHASES` but "done") leaves
+# for the phases after it
 PHASE_KEYS = {
     "phase1": ("f_eval", "f_res", "f_levels"),
     "phase2": ("f_res", "f_levels", "cp_eval", "layer_res", "layer_levels"),
@@ -221,6 +223,8 @@ class ResumableProver:
     checkpoint holds the same host arrays whatever the mesh, so one written
     at one mesh size resumes at another, or solo, to the same bytes."""
 
+    PHASES = ("phase1", "phase2", "fri", "fused", "done")
+
     def __init__(self, cfg: StarkConfig, secret: int, path: str, fused: bool = False, device="cuda",
                  mesh=None):
         self.cfg = cfg
@@ -243,6 +247,8 @@ class ResumableProver:
         return proof
 
     def run(self, stop_after: str | None = None) -> Proof | None:
+        if stop_after is not None and stop_after not in self.PHASES:
+            raise ValueError(f"stop_after: no phase {stop_after!r} (one of {self.PHASES})")
         cfg = self.cfg
         dev = self.mesh.device if self.mesh is not None else pr.resolve_device(self.device)
         if os.path.exists(self.path):
@@ -254,7 +260,7 @@ class ResumableProver:
             return fp.from_host(a, dev)
 
         def dev_levels(levels):
-            return [dev_t(lv) for lv in levels]
+            return merkle.levels_from_host(levels, dev)
 
         if phase == "start" and self.fused:
             if self.mesh is None:

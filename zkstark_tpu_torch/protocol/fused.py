@@ -8,7 +8,9 @@ challenge and the phase-4 opening gathers are enqueued without one call that
 waits for the device: challenges stay device tensors, the fold reads its beta
 from device memory, and every constant table is cached on the device. Only
 one packed vector (roots, challenges, a few KB of openings) crosses to the
-host, through pinned memory behind an event (`PendingFetch`).
+host, through pinned memory behind an event (`PendingFetch`); the openings
+kernel writes that vector whole, the draws and roots included, so nothing is
+stacked or concatenated around it.
 
 PyTorch runs eagerly, so "one program" here means one uninterrupted run of
 launches on the current stream, not one compiled graph; since nothing inside
@@ -31,6 +33,8 @@ mesh size and shape.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -39,21 +43,34 @@ from zkstark_tpu_torch.ops import fs_chain
 from zkstark_tpu_torch.parallel import pipeline as pl
 from zkstark_tpu_torch.protocol import air
 from zkstark_tpu_torch.protocol.config import StarkConfig
-from zkstark_tpu_torch.protocol.openings import map_leaves, opening_shapes, pack_tree, unpack_tree
+from zkstark_tpu_torch.protocol.openings import (  # noqa: F401 (pack_tree, map_leaves: the module's API)
+    draw_columns,
+    map_leaves,
+    opening_shapes,
+    pack_tree,
+    unpack_tree,
+)
 from zkstark_tpu_torch.transcript import device_channel as dc
 
 
-def fused_core_batch(cfg: StarkConfig, traces_mont: torch.Tensor, mesh=None) -> dict:
+@functools.lru_cache(maxsize=16)
+def _zero_state(bsz: int, device: torch.device) -> torch.Tensor:
+    """B channels' zero state on `device`, made once: the chain kernel reads
+    it and writes a new state, so no prove fills it again."""
+    return dc.zero_state((bsz,), device)
+
+
+def fused_core_batch_packed(cfg: StarkConfig, traces_mont: torch.Tensor,
+                            mesh=None) -> torch.Tensor:
     """(B, trace_len) Montgomery traces → everything B transcripts and
-    decommitments need, as uint32 tensors on the traces' device, the
-    challenges derived there: roots (B, 2 + fri_rounds, 8) digests in commit
-    order, alphas (B, n_constraints), betas (B, fri_rounds), free_term (B,),
-    queries (B, n_queries), and the openings of
-    `openings.sparse_openings_device` behind the leading B. Makes no call
-    that waits for the device once its constant tables are cached (after one
-    prove of the config on the device). With a `mesh`, B = 1 and the program
-    is sharded over the evaluation domain; every leaf is whole on every
-    process."""
+    decommitments need, as one flat uint32 vector on the traces' device, the
+    challenges derived there: the leaves of `out_shapes(cfg, (B,))` (roots,
+    alphas, betas, free_term, queries and the openings), keys sorted, each
+    B-major, written by one launch of the openings kernel
+    (`openings.packed_result`). Makes no call that waits for the device once
+    its constant tables are cached (after one prove of the config on the
+    device). With a `mesh`, B = 1 and the program is sharded over the
+    evaluation domain; the vector is whole on every process."""
     fld = cfg.field
     bsz = traces_mont.shape[0]
     dev = traces_mont.device
@@ -63,57 +80,57 @@ def fused_core_batch(cfg: StarkConfig, traces_mont: torch.Tensor, mesh=None) -> 
     # ---- Phase 1: interpolate + LDE + commit (prover.rs:24-85) ----
     coeffs = air.interpolate_trace(traces_mont, cfg.trace_domain, fld)
     f_eval = pl.lde(cfg, coeffs, mesh)
-    f_res = pl.from_mont(cfg, f_eval)
-    f_levels = pl.build_levels(f_res, mesh)
-    roots = [f_levels[-1][:, 0]]
+    f_res, f_levels = pl.commit_lde(cfg, f_eval, mesh)
 
-    # ---- Phase 2: composition (prover.rs:87-180) ----
-    state = dc.zero_state((bsz,), dev)
-    state, alphas, alphas_mont, _ = fs_chain.chain_step(
-        state, digest=roots[0], draws=cfg.n_constraints, field=fld
+    # ---- Phase 2: composition (prover.rs:87-180). Every draw the host
+    # replays goes into its column of one (B, ·) tensor ----
+    cols = draw_columns(cfg)
+    draws = torch.empty((bsz, sum(count for _, count in cols)), dtype=torch.uint32, device=dev)
+
+    def column(which: int, first: int = 0, count: int | None = None) -> torch.Tensor:
+        at = cols[which][0] + first
+        return draws[:, at : at + (cols[which][1] if count is None else count)]
+
+    state = _zero_state(bsz, dev)
+    state, _, alphas_mont, _ = fs_chain.chain_step(
+        state, digest=f_levels[-1][:, 0], draws=cfg.n_constraints, field=fld,
+        draws_out=column(0),
     )
-    cp, cp_res = pl.composition(cfg, f_eval, alphas_mont, mesh)
+    cp, cp_res, cp_levels = pl.composition(cfg, f_eval, alphas_mont, mesh)
     del f_eval, coeffs
-    cp_levels = pl.build_levels(cp_res, mesh)
-    roots.append(cp_levels[-1][:, 0])
 
     # ---- Phase 3: FRI (prover.rs:182-254). One chain launch per boundary:
     # the root just built, then the draw that follows it ----
     layer_res, layer_levels = [cp_res], [cp_levels]
     evals = cp
-    betas = []
     for layer in range(cfg.fri_rounds):
-        state, beta, beta_mont, _ = fs_chain.chain_step(
-            state, digest=roots[-1], draws=1, field=fld
+        state, _, beta_mont, _ = fs_chain.chain_step(
+            state, digest=layer_levels[-1][-1][:, 0], draws=1, field=fld,
+            draws_out=column(1, layer, 1),
         )
-        betas.append(beta)
         evals, res, levels = pl.fold(cfg, layer, evals, beta_mont[:, 0], mesh)
         layer_res.append(res)
         layer_levels.append(levels)
-        roots.append(levels[-1][:, 0])
-    free_term = fp.as_u32(fp.as_i32(pl.whole(layer_res[-1], mesh))[:, 0].contiguous())
+    last = pl.whole(layer_res[-1], mesh)  # (B, n): word 0 is the free term
 
-    # ---- Phase 4 prologue: the last root, the free term, then every query
-    # draw before any opening (prover.rs:263, generalised to n_queries) ----
-    state, _, _, queries = fs_chain.chain_step(
-        state, digest=roots[-1], word=free_term, draws=cfg.n_queries, field=fld,
-        query_range=cfg.query_range,
+    # ---- Phase 4 prologue: the last root, the free term (read in place),
+    # then every query draw before any opening (prover.rs:263, generalised to
+    # n_queries) ----
+    fs_chain.chain_step(
+        state, digest=layer_levels[-1][-1][:, 0], word=last[:, 0], draws=cfg.n_queries,
+        field=fld, query_range=cfg.query_range, mod_out=column(2),
     )
+    return pl.packed(cfg, f_res, f_levels, layer_res, layer_levels, draws, mesh)
 
-    def stack(parts, width):
-        if not parts:
-            return fp.zeros((bsz, 0) + width, dev)
-        return fp.as_u32(torch.stack([fp.as_i32(t) for t in parts], dim=1))
 
-    return {
-        "roots": stack(roots, (8,)),
-        "alphas": alphas,
-        "betas": fp.as_u32(torch.cat([fp.as_i32(b) for b in betas], dim=1))
-        if betas else fp.zeros((bsz, 0), dev),
-        "free_term": free_term,
-        "queries": queries,
-        **pl.openings(cfg, f_res, f_levels, layer_res, layer_levels, queries, mesh),
-    }
+def fused_core_batch(cfg: StarkConfig, traces_mont: torch.Tensor, mesh=None) -> dict:
+    """`fused_core_batch_packed` as a dict of views of its vector: roots
+    (B, 2 + fri_rounds, 8) digests in commit order, alphas (B,
+    n_constraints), betas (B, fri_rounds), free_term (B,), queries (B,
+    n_queries), and the openings of `openings.sparse_openings_device` behind
+    the leading B."""
+    flat = fused_core_batch_packed(cfg, traces_mont, mesh)
+    return unpack_tree(flat, out_shapes(cfg, (traces_mont.shape[0],)))
 
 
 def fused_core(cfg: StarkConfig, trace_mont: torch.Tensor, mesh=None) -> dict:
@@ -122,11 +139,11 @@ def fused_core(cfg: StarkConfig, trace_mont: torch.Tensor, mesh=None) -> dict:
     alphas (n_constraints,), betas (fri_rounds,), free_term (), queries
     (n_queries,), open_f_vals (q, n_shifts), open_f_paths (q, n_shifts,
     depth, 8), open_cp_vals (q,), open_cp_paths (q, depth, 8) and per FRI
-    layer open_fri_vals (q, 2), open_fri_paths (q, 2, depth, 8). With a
-    `mesh`, sharded over the evaluation domain (the trace replicated on the
-    mesh's device); every leaf is whole on every process."""
-    out = fused_core_batch(cfg, fp.as_u32(fp.as_i32(trace_mont)[None]), mesh)
-    return map_leaves(out, lambda t: fp.as_u32(fp.as_i32(t)[0]))
+    layer open_fri_vals (q, 2), open_fri_paths (q, 2, depth, 8); views of
+    `fused_core_packed`'s vector. With a `mesh`, sharded over the evaluation
+    domain (the trace replicated on the mesh's device); every leaf is whole
+    on every process."""
+    return unpack_tree(fused_core_packed(cfg, trace_mont, mesh), out_shapes(cfg))
 
 
 def out_shapes(cfg: StarkConfig, lead: tuple = ()) -> dict:
@@ -145,8 +162,9 @@ def out_shapes(cfg: StarkConfig, lead: tuple = ()) -> dict:
 
 def fused_core_packed(cfg: StarkConfig, trace_mont: torch.Tensor, mesh=None) -> torch.Tensor:
     """`fused_core` with the whole result packed into one flat uint32 vector
-    (with a mesh: the same vector in every process)."""
-    return pack_tree(fused_core(cfg, trace_mont, mesh))
+    (with a mesh: the same vector in every process): `pack_tree` of its dict,
+    which the kernel writes as it is (B = 1 of `fused_core_batch_packed`)."""
+    return fused_core_batch_packed(cfg, fp.as_u32(fp.as_i32(trace_mont)[None]), mesh)
 
 
 def unpack_out(cfg: StarkConfig, flat: np.ndarray) -> dict:

@@ -7,7 +7,9 @@ device and fetched in one transfer of a few KB; the Merkle levels (about
 3 GB at a 2^24 domain) never leave the device. On a card the gathers are one
 launch of the kernel behind ``ops/openings.py``, which writes them straight
 into one flat vector in `pack_tree`'s layout (`sparse_openings_packed`; the
-sharded prover calls it once a local shard, ``parallel/pipeline.py``).
+sharded prover calls it once a local shard, ``parallel/pipeline.py``). The
+fused core's launch (`packed_result`) writes its whole packed result: the
+openings, the roots, the free term and the chain's draws.
 
 `sparse_openings_device` takes the query indices as a device tensor of any
 leading batch shape and returns views of that vector, so the fused core
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from zkstark_tpu_torch.field import fp
+from zkstark_tpu_torch.hash import merkle
 from zkstark_tpu_torch.ops import openings as open_op
 
 
@@ -81,30 +84,69 @@ def opening_shapes(cfg, lead: tuple = ()) -> dict:
 @functools.lru_cache(maxsize=64)
 def segments(cfg) -> tuple:
     """The opening leaves as `ops.openings.Segment`s in `pack_tree`'s order
-    (keys sorted, lists in order), over the trees of `_trees`: 0 the trace,
+    (keys sorted, lists in order), over the trees of `trees`: 0 the trace,
     1 + k FRI layer k (layer 0 the composition). The index rules are the JAX
     package's: x + shift·blowup for the trace, x itself for the composition,
     x & (size − 1) and its partner + size/2 for a FRI layer of `size` points."""
-    seg = open_op.Segment
-    everything = open_op.ALL
+    seg, vals, paths = open_op.Segment, open_op.VALUES, open_op.PATHS
     f_adds = tuple(k * cfg.blowup for k in cfg.air.shifts)
     layers = [(1 + k, cfg.eval_domain >> k) for k in range(cfg.fri_rounds)]
     return (
-        seg(1, True, everything, (0,)),  # open_cp_paths
-        seg(1, False, everything, (0,)),  # open_cp_vals
-        seg(0, True, everything, f_adds),  # open_f_paths
-        seg(0, False, everything, f_adds),  # open_f_vals
-        *(seg(t, True, size - 1, (0, size // 2)) for t, size in layers),  # open_fri_paths
-        *(seg(t, False, size - 1, (0, size // 2)) for t, size in layers),  # open_fri_vals
+        seg(paths, 1),  # open_cp_paths
+        seg(vals, 1),  # open_cp_vals
+        seg(paths, 0, adds=f_adds),  # open_f_paths
+        seg(vals, 0, adds=f_adds),  # open_f_vals
+        *(seg(paths, t, size - 1, (0, size // 2)) for t, size in layers),  # open_fri_paths
+        *(seg(vals, t, size - 1, (0, size // 2)) for t, size in layers),  # open_fri_vals
     )
 
 
-def _trees(cfg, f_res, f_levels, layer_res, layer_levels) -> list:
-    """[values, level 0, …] of the trace tree and of each opened layer (the
-    root level is not read)."""
-    layers = max(cfg.fri_rounds, 1)
-    return [[f_res, *f_levels[:-1]]] + [
-        [res, *levels[:-1]] for res, levels in zip(layer_res[:layers], layer_levels[:layers])
+def draw_columns(cfg) -> tuple:
+    """The columns of the fused core's (B, ·) draws tensor: (alphas, betas,
+    queries) as (first, count), n_constraints + fri_rounds + n_queries words
+    a row."""
+    nc, rounds = cfg.n_constraints, cfg.fri_rounds
+    return (0, nc), (nc, rounds), (nc + rounds, cfg.n_queries)
+
+
+@functools.lru_cache(maxsize=64)
+def packed_segments(cfg) -> tuple:
+    """Every leaf of the fused core's packed result (``protocol/fused.py``
+    `out_shapes`, keys sorted) as `Segment`s over the 2 + fri_rounds trees of
+    `trees` (the last FRI layer's last) and one source, the (B, ·) draws of
+    `draw_columns`: the alphas, betas and queries copied from their columns,
+    the free term (the last layer's value 0), the openings, the roots."""
+    seg, copy = open_op.Segment, open_op.COPY
+    alphas, betas, queries = draw_columns(cfg)
+    width = sum(count for _, count in draw_columns(cfg))
+    return (
+        seg(copy, 0, count=alphas[1], stride=width, offset=alphas[0]),  # alphas
+        seg(copy, 0, count=betas[1], stride=width, offset=betas[0]),  # betas
+        seg(open_op.FIRST, 1 + cfg.fri_rounds),  # free_term
+        *segments(cfg),  # open_*
+        seg(copy, 0, count=queries[1], stride=width, offset=queries[0]),  # queries
+        seg(open_op.ROOTS, 0, count=2 + cfg.fri_rounds),  # roots
+    )
+
+
+def _tree(res, levels, block: int | None) -> open_op.Tree:
+    """One tree as the openings kernel reads it: whole, or on a shard its
+    block `block` of a sharded tree (``parallel/merkle_sharded.py``)."""
+    if isinstance(res, list):
+        return open_op.Tree(open_op.Block(res[block]), open_op.Block(levels.blocks[block]),
+                            len(levels) - 1, levels.top)
+    if not isinstance(levels, merkle.Levels):
+        raise ValueError("openings: a tree's levels must be one allocation (hash.merkle.Levels)")
+    # values made at the head of the allocation (merkle.tree_values): one pointer
+    return open_op.Tree(None if levels.head else res, levels.buffer, len(levels) - 1)
+
+
+def trees(f_res, f_levels, layer_res, layer_levels, block: int | None = None) -> list:
+    """The `ops.openings.Tree`s of the trace and of each FRI layer (layer 0
+    the composition), whole or, on a shard, block `block` of each sharded
+    one."""
+    return [_tree(f_res, f_levels, block)] + [
+        _tree(res, levels, block) for res, levels in zip(layer_res, layer_levels)
     ]
 
 
@@ -113,15 +155,27 @@ def sparse_openings_packed(cfg, f_res, f_levels, layer_res, layer_levels, querie
     """Every phase-4 opening at the (…, q) uint32 device query indices as one
     flat uint32 device vector in `pack_tree`'s layout of
     `sparse_openings_device`'s dict: one kernel launch on a card. Layer 0 of
-    layer_res / layer_levels is the composition tree. On shard `shard` of a
-    mesh (B = 1), the arrays that are lists are sharded, and item `block` of
-    each list is this shard's block (`ops.openings.Block`; see there for the
-    owner rule)."""
-    trees = _trees(cfg, f_res, f_levels, layer_res, layer_levels)
-    if shard is not None:
-        trees = [[open_op.Block(a[block]) if isinstance(a, list) else a for a in t]
-                 for t in trees]
-    return open_op.openings(queries, trees, segments(cfg), shard)
+    layer_res / layer_levels is the composition tree; the levels are
+    `hash.merkle.Levels`. On shard `shard` of a mesh (B = 1), the values that
+    are lists are sharded, and item `block` of each is this shard's block
+    (`ops.openings.Block`; see there for the owner rule)."""
+    t = trees(f_res, f_levels, layer_res, layer_levels, None if shard is None else block)
+    return open_op.openings(queries, t, segments(cfg), shard)
+
+
+def packed_result(cfg, f_res, f_levels, layer_res, layer_levels, draws,
+                  shard: int | None = None, block: int = 0) -> torch.Tensor:
+    """The fused core's whole packed result, `out_shapes`' leaves B-major in
+    sorted order, in one kernel launch on a card: `sparse_openings_packed`'s
+    openings at the queries of `draws` (the (B, ·) draws of `draw_columns`),
+    the 2 + fri_rounds roots of the trace and every layer, the free term
+    (value 0 of the last layer) and the alphas, betas and queries. On a shard
+    as `sparse_openings_packed`; shard 0 alone writes the roots above the
+    subtrees, the draws and the free term."""
+    t = trees(f_res, f_levels, layer_res, layer_levels, None if shard is None else block)
+    first, count = draw_columns(cfg)[2]
+    queries = draws[:, first : first + count]
+    return open_op.openings(queries, t, packed_segments(cfg), shard, (draws,))
 
 
 def sparse_openings_device(cfg, f_res, f_levels, layer_res, layer_levels, queries) -> dict:

@@ -40,7 +40,7 @@ from zkstark_tpu_torch.field import fp
 from zkstark_tpu_torch.field.fp import resolve_device
 from zkstark_tpu_torch.hash import merkle
 from zkstark_tpu_torch.hash.sha256 import digest_to_bytes
-from zkstark_tpu_torch.ops import composition, constants, elementwise, fri_fold
+from zkstark_tpu_torch.ops import composition, constants, elementwise, fri_fold, powers
 from zkstark_tpu_torch.protocol import air
 from zkstark_tpu_torch.protocol.config import StarkConfig
 from zkstark_tpu_torch.protocol.openings import sparse_openings
@@ -163,19 +163,14 @@ def _composition_constants_host(cfg: StarkConfig) -> dict:
     return {"xs": fld.host_to_mont(xs_std), "inv_dens": tuple(inv_dens)}
 
 
-def _domain_chunk(cfg: StarkConfig, start: int, size: int, device) -> torch.Tensor:
-    """x_j = offset·h^j for start ≤ j < start + size, Montgomery form."""
-    fld = cfg.field
-    scale = cfg.coset_offset * pow(cfg.domain_generator, start, fld.p) % fld.p
-    return fp.powers_iota_f(fld, cfg.domain_generator, size, scale=scale, device=device)
-
-
 def coset_domain(cfg: StarkConfig, device) -> torch.Tensor:
     """The coset domain xs (d,) in Montgomery form on `device`; built at each
-    call (only `composition_eval_plain` reads it)."""
+    call (only `composition_eval_plain` reads it), in plain torch, so that
+    the composition kernel's reference runs none of the port's kernels."""
     if cfg.eval_domain <= _HOST_CONST_MAX:
         return fp.from_host(_composition_constants_host(cfg)["xs"], device)
-    return _domain_chunk(cfg, 0, cfg.eval_domain, device)
+    return powers.powers_plain(cfg.field, cfg.domain_generator, cfg.eval_domain,
+                               cfg.coset_offset, device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -219,16 +214,17 @@ def composition_eval_plain(cfg: StarkConfig, f_eval: torch.Tensor, alphas_mont):
     return acc
 
 
-def composition_eval_res(cfg: StarkConfig, f_eval: torch.Tensor, alphas_mont):
+def composition_eval_res(cfg: StarkConfig, f_eval: torch.Tensor, alphas_mont, res_out=None):
     """Pointwise constraint composition on the coset (prover.rs:87-180)
     from the config's AIR, through `ops.composition.composition`: one kernel
     launch on a CUDA tensor. f_eval: (…, d) uint32 Montgomery, the leading
     axes independent proofs; alphas_mont: Montgomery-form ints, one per
     constraint, or a (…, n_constraints) uint32 device tensor. Returns
-    (cp_eval, cp_res): Montgomery form and standard residues."""
+    (cp_eval, cp_res): Montgomery form and standard residues, the residues
+    written into `res_out` where given."""
     return composition.composition(
         f_eval, composition_constants(cfg, f_eval.device), alphas_mont,
-        composition_program(cfg), cfg.field,
+        composition_program(cfg), cfg.field, res_out=res_out,
     )
 
 
@@ -257,17 +253,20 @@ def fri_layer_constants(cfg: StarkConfig, layer: int) -> np.ndarray:
                                                  scale=inv_off))
 
 
-def fri_fold_eval(cfg: StarkConfig, layer: int, evals: torch.Tensor, beta_mont, build=None):
+def fri_fold_eval(cfg: StarkConfig, layer: int, evals: torch.Tensor, beta_mont, build=None,
+                  res_out=None):
     """Evaluation-form FRI fold P'(x²) = (P(x)+P(−x))/2 + β·(P(x)−P(−x))/(2x)
     — the reference's coefficient fold (polynomial.rs:385-400) on the
     halved-and-squared domain — through `ops.fri_fold.fri_fold`. evals
     (…, m): the last axis is the layer domain, the leading axes independent
     proofs; beta_mont a Montgomery-form int, or a uint32 device tensor with
     one challenge per proof. `build` replaces `merkle.build_levels` (the
-    batched prover passes `merkle.build_levels_batch`). Returns (folded,
-    residues, Merkle levels)."""
+    batched prover passes `merkle.build_levels_batch`); the residues are
+    written into `res_out` where given. Returns (folded, residues, Merkle
+    levels)."""
     inv_base, inv_off = _fri_layer_params(cfg, layer)
-    folded, res = fri_fold.fri_fold(evals, beta_mont, inv_base, inv_off, cfg.field)
+    folded, res = fri_fold.fri_fold(evals, beta_mont, inv_base, inv_off, cfg.field,
+                                    res_out=res_out)
     return folded, res, (build or merkle.build_levels)(res)
 
 
@@ -472,10 +471,12 @@ def fused_replay(cfg: StarkConfig, channel: Channel, out: dict) -> list:
     return queries
 
 
-def finish_fused(cfg: StarkConfig, out: dict, artifacts: ProverArtifacts | None = None) -> Proof:
-    """One proof's fetched `fused_core` dict → Proof: host replay, then the
-    serialization of the openings."""
-    channel = Channel()
+def finish_fused(cfg: StarkConfig, out: dict, artifacts: ProverArtifacts | None = None,
+                 channel: Channel | None = None) -> Proof:
+    """One proof's fetched `fused_core` dict → Proof: host replay through
+    `channel` (a new one by default), then the serialization of the
+    openings."""
+    channel = Channel() if channel is None else channel
     queries = fused_replay(cfg, channel, out)
     if artifacts is not None:
         artifacts.query_indices = list(queries)
@@ -490,6 +491,7 @@ def prove(
     timings: dict | None = None,
     fused: bool = True,
     mesh=None,
+    channel: Channel | None = None,
 ) -> Proof:
     """A proof byte-identical to the reference's generate_proof
     (prover.rs:9-293) and to ``zkstark_tpu.protocol.prove`` for the same
@@ -509,7 +511,13 @@ def prove(
     mesh: a ``parallel.mesh.Mesh`` — the fused program sharded over the
     evaluation domain on the mesh's device (`device` is then not read); the
     bytes are the same at any mesh size and shape, and on a process-group
-    mesh every process returns the same proof. Needs the fused path."""
+    mesh every process returns the same proof. Needs the fused path.
+
+    channel: the transcript to prove into (default: a new one), as in the
+    JAX package. The host-synced path commits to it as it goes; the fused
+    path replays the device's chain through it, and the device chain starts
+    from the zero state, so a channel that is not new raises
+    `DeviceChannelMismatch` there, as the JAX package's does."""
     if mesh is not None and not fused:
         raise ValueError("sharded proving requires the fused path")
     dev = mesh.device if mesh is not None else resolve_device(device)
@@ -523,10 +531,10 @@ def prove(
         clock.lap("device_program")
         out = fused_mod.unpack_out(cfg, pending.wait())
         clock.lap("fetch")
-        proof = finish_fused(cfg, out, artifacts)
+        proof = finish_fused(cfg, out, artifacts, channel)
         clock.lap("replay_decommit")
         return proof
-    channel = Channel()
+    channel = Channel() if channel is None else channel
     out, queries = device_phases(cfg, secret, dev, channel, artifacts, clock)
     proof = decommit(cfg, channel, out, queries)
     clock.lap("phase4_decommit")
