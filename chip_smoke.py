@@ -127,7 +127,15 @@ Phases, one output line (or a few) each:
      starts a group of one on the card and proves stark-101 (one shard) and
      the 2^21 statement (two shards in the process) through it, each equal
      to its solo proof (7,836 B golden, 17,612 B);
- 17. the wall time, the kernel JSON line, then the result line.
+ 17. the bench twin: ``python -m zkstark_tpu_torch.tools.bench --repeats 5``
+     in a subprocess, on phase 1's build (no rebuild): exit 0, and its last
+     line the final headline, `stark101_prove_latency`, with every metric of
+     `bench.py`'s default run (`ntt_ops_ratio_2e24` for `ntt_vpu_ratio_2e24`)
+     present and positive, nothing skipped, the card's name and power limit;
+     every kernel of its path launched; the record and the min, median and max
+     of its 5 timed proves printed; then the twin's timed Merkle and NTT work
+     in this process under torch.profiler, device busy time beside wall time;
+ 18. the wall time, the kernel JSON line, then the result line.
 
 Every phase that proves checks the launch counters of its own route.
 
@@ -145,6 +153,10 @@ import time
 
 import numpy as np
 import torch
+
+from zkstark_tpu_torch.tools.roofline import (FOLD_OPS, FP_ADD, FP_MUL, FP_SUB, SHA_BLOCK,
+                                              SHA_LEAF, SHA_NODE, SHA_ROUNDS, bound,
+                                              limb_rows_bound, ntt_rows_bound)
 
 GOLDEN_STATE = "d7eec91544f72a592145e7d505a2f274de740e0319ede8c983fd84c7736f6712"
 GOLDEN_LEN = 7836
@@ -165,45 +177,6 @@ MAX_TREE_LAUNCHES = 20
 DIT_KERNELS = (*ROW_KERNELS, "transpose")
 FUSED_KERNELS = ("fs_chain", "fri_fold")  # the one-fetch path's own
 
-# The card's published peaks (NVIDIA H100 SXM data sheet) that the bounds are
-# taken against: device memory rate, and integer ops per second as
-# half the float32 lanes (67 TFLOP/s is 2 flops on 128 lanes per SM; an SM
-# has 64 INT32 lanes).
-HBM_BYTES_PER_S = 3.35e12
-INT32_INSTR_PER_S = 67e12 / 4
-# Dense INT8 rate of the tensor cores, same data sheet: 1,979 TOP/s, an
-# operation being a multiply or an add, so half as many multiply-adds.
-INT8_OPS_PER_S = 1979e12
-# The fewest integer ops (machine ops, one issue slot each) the arithmetic needs (loads, stores and
-# addressing not counted), as the bounds take them:
-#  * a Montgomery product of reduced residues 6 (a wide multiply, a low
-#    multiply, a high multiply, a subtract, a compare, a conditional add), a
-#    modular add 4, a modular subtract 3 (csrc/fp.cuh): 13 a butterfly;
-#  * a SHA-256 round 14 (two Σ of 3 rotates and one 3-input xor, Ch, Maj,
-#    4 three-input adds), a schedule step 10 (two σ of 4, two three-input
-#    adds), 8 adds to feed forward. A parent hashes one full block and the
-#    constant padding block, whose schedule costs nothing. A leaf hashes one
-#    block whose words 1..15 are constants: round 0 runs on constant state
-#    (3 instead of 14), and its 48 schedule steps fold to 370 ops
-#    (steps 16..30 to 52, every other step from 32 to 36 to 6, the rest 10).
-FP_MUL, FP_ADD, FP_SUB = 6, 4, 3
-SHA_ROUNDS = 64 * 14 + 8
-SHA_NODE = (SHA_ROUNDS + 48 * 10) + SHA_ROUNDS
-SHA_LEAF = SHA_ROUNDS - 11 + 370
-#  * one compression of a full block: the rounds and 48 schedule steps; a
-#    digest commit of the channel is that and the constant padding block, a
-#    u32 commit or a draw one full block;
-#  * an output of the FRI fold: 1/x_j from its two table words (a product),
-#    (a + b)/2 (an add, a product), β·(a − b)/(2x) (a subtract, two products),
-#    their sum, and the REDC of from_mont (5): 4 products, 2 adds, 1 subtract.
-#  * an output of a limb-DFT stage, outside the tensor cores: three 64-bit
-#    shift-adds of the limb sums (two ops each), the REDC (5) and, in the first
-#    stage, the in-row twiddle (a product);
-#  * a point of the composition: the field ops of its program (counted by
-#    `ops.composition.Program.field_ops`) and the REDC of from_mont (5).
-SHA_BLOCK = SHA_ROUNDS + 48 * 10
-FOLD_OPS = 4 * FP_MUL + 2 * FP_ADD + FP_SUB + 5
-LIMB_RECOMBINE = 6 + 5
 
 SRC = {
     "sha256_leaf": ("zkstark_tpu_torch/csrc/sha256.cu", "zkstark_tpu/ops/sha256_kernel.py:105"),
@@ -475,45 +448,6 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 
     assert a.shape == b.shape, (a.shape, b.shape)
     return int((fp.wide(a) - fp.wide(b)).abs().max().item())
-
-
-def bound(nbytes: float, instr: float, int8_macs: float = 0.0) -> dict:
-    """The least milliseconds the card could take to move `nbytes` (each
-    input read once, each output written once), to execute `instr` integer
-    ops and to do `int8_macs` u8 multiply-adds on the tensor cores, and
-    whether the bytes or the operations (of either type) set it."""
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = max(instr / INT32_INSTR_PER_S, 2 * int8_macs / INT8_OPS_PER_S) * 1e3
-    return dict(bound_ms=max(by_bytes, by_ops),
-                bound_by="bytes" if by_bytes >= by_ops else "operations")
-
-
-def ntt_rows_bound(batch, valid, m, pre=False, uv=False, post=False, scale=False) -> dict:
-    """Bound of one `ntt_rows` call: rows and tables read once, the result
-    written once; (m/2)·log2(m) butterflies a row and the fused products."""
-    log_m = m.bit_length() - 1
-    words = batch * (valid + m) + (m - 1) + (batch // min(128, batch) + min(128, batch)) * m * uv
-    muls = batch * (m // 2 * log_m + 2 * valid * pre + 2 * m * uv + 2 * m * post + m * scale)
-    adds = batch * (m // 2 * log_m)
-    return bound(4 * words, muls * FP_MUL + adds * (FP_ADD + FP_SUB))
-
-
-def limb_rows_bound(batch, valid, m, pre=False, uv=False, post=False, scale=False) -> dict:
-    """Bound of one `limb_dft_rows` call: rows, the in-row twiddle, the two
-    limb matrices and the tables read once, the result written once; the
-    multiply-adds of the two matrix products (the first contracts only the
-    rows of the (k1, k2) view that hold input), and per output the
-    recombination, the REDC and the fused products."""
-    from zkstark_tpu_torch.ops import ntt_kernel
-
-    k1, k2 = ntt_kernel.split(m)
-    rows_in = -(-(-(-valid // k2)) // 8) * 8  # whole k-steps of 8
-    words = (batch * (valid + m) + m + 4 * k1 * k1 + 4 * k2 * k2
-             + (batch // min(128, batch) + min(128, batch)) * m * uv)
-    macs = batch * (16 * k1 * rows_in * k2 + 16 * k2 * m)
-    instr = batch * (m * (2 * LIMB_RECOMBINE + FP_MUL)
-                     + FP_MUL * (2 * valid * pre + 2 * m * uv + 2 * m * post + m * scale))
-    return bound(4 * words, instr, macs)
 
 
 def require_launched(counts: dict, names, what: str) -> None:
@@ -2872,6 +2806,89 @@ def phase16_nccl_group() -> dict:
     return res
 
 
+# the metrics of `bench.py`'s default run (not --all), as the twin names them
+BENCH_METRICS = ("value", "vs_baseline", "warmup_prove_seconds", "verify_seconds",
+                 "stark101_prove_pipelined_latency", "merkle_hashes_per_sec_2e20",
+                 "ntt_points_per_sec_2e24", "ntt_sol_ratio_2e24", "ntt_ops_ratio_2e24",
+                 "proofs_per_sec_b32", "proofs_per_sec_b64", "ntt_points_per_sec_2e27",
+                 "total_bench_seconds")
+# the kernels of the twin's default run: the fused stark-101 proves and
+# batches, the Merkle trees, the 2^24 four-step and the 2^27 limb route
+BENCH_KERNELS = ("sha256_leaf", "sha256_node", "sha256_tree_tail", "ntt_rows", "transpose",
+                 "limb_dft_rows", "fs_chain", "fri_fold", "composition", *GLUE_KERNELS)
+BENCH_BUDGET_S = 600  # the twin's own budget; its sections take well under a minute
+BENCH_TIMEOUT_S = 700
+
+
+def phase17_bench(smi: str) -> dict:
+    """`python -m zkstark_tpu_torch.tools.bench --repeats 5` in a subprocess,
+    on the kernels phase 1 built: exit 0, the last stdout line the final
+    headline with every metric of `bench.py`'s default run, positive, none
+    skipped, the card's name and power limit; every kernel of its path
+    launched (its stderr's counts, from its warm-up on). Prints the record
+    and the spread of the 5 timed proves; returns the run's launches."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "zkstark_tpu_torch.tools.bench", "--repeats", "5",
+         "--budget", str(BENCH_BUDGET_S)],
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+    )
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"tools.bench exited {run.returncode}:\n{run.stderr[-4000:]}")
+    records = [json.loads(ln) for ln in run.stdout.splitlines()]
+    diag = {}
+    for ln in run.stderr.splitlines():
+        if ln.startswith("{"):
+            d = json.loads(ln)
+            diag[d.get("phase") or d.get("metric")] = d
+    last = records[-1]
+    if records[0].get("status") != "warming":
+        raise AssertionError(f"tools.bench: the first record is not the warming line: {records[0]}")
+    bad = [k for k in BENCH_METRICS if not (isinstance(last.get(k), (int, float)) and last[k] > 0)]
+    bad += [k for k, v in last["phases"].items() if not v > 0]
+    if (last["metric"] != "stark101_prove_latency" or last.get("provisional") or last.get("skipped")
+            or last.get("reduced") or bad):
+        raise AssertionError(f"tools.bench: the last record is not a whole headline ({bad}): {last}")
+    if last["device"] != torch.cuda.get_device_name(0) or last["power_limit"] != smi.rsplit(",", 1)[1].strip():
+        raise AssertionError(f"tools.bench: device {last['device']!r}, power {last['power_limit']!r}; "
+                             f"nvidia-smi says {smi!r}")
+    if diag["build_seconds"]["nvcc_seconds"] != 0.0:
+        raise AssertionError("tools.bench rebuilt the kernels")
+    times = sorted(diag["prove_seconds_all"]["value"])
+    if len(times) != 5 or times[0] != last["value"]:
+        raise AssertionError(f"tools.bench: prove_seconds_all {times}, headline {last['value']}")
+    launches = diag["kernel_launches"]["value"]
+    require_launched(launches, BENCH_KERNELS, "tools.bench")
+    say(f"phase17 tools.bench record={json.dumps(last)}")
+    say(f"phase17 tools.bench prove_seconds_all n=5 min={times[0]!r} median={times[2]!r} "
+        f"max={times[-1]!r} build_seconds={diag['build_seconds']['value']!r} "
+        f"launches={json.dumps({k: v for k, v in launches.items() if v})} wall_s={wall:.1f}")
+    _bench_work_busy()
+    return launches
+
+
+def _bench_work_busy() -> None:
+    """The twin's timed Merkle and NTT work, one warm run each in this process
+    under torch.profiler: the device's busy time beside the host's wall time
+    (inflated by the profiler), which says whether the host or the device
+    sets the twin's throughput numbers."""
+    from zkstark_tpu_torch import ntt
+    from zkstark_tpu_torch.tools import bench
+
+    leaves = bench.merkle_input(1 << 20, "cuda")
+    x = bench.ntt_input(1 << 24, "cuda")
+    plan = ntt.forward_plan(1 << 24)
+    for label, fn in (("merkle_chain 8 trees of 2^20 leaves", lambda: bench.merkle_chain(leaves, 8)),
+                      ("ntt_chain 8 transforms of 2^24", lambda: bench.ntt_chain(x, plan, 8))):
+        fn()
+        say(f"phase17 {label} {json.dumps(_device_busy(fn))}")
+    del leaves, x
+    torch.cuda.empty_cache()
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase0_device()
@@ -2898,6 +2915,7 @@ def main():
     del proof24
     phase14_scaling_bench()
     giant_launches = phase12_past_2e26()
+    bench_launches = phase17_bench(smi)
     # the launches of a kernel are those of the main-path run that first drove
     # it: the 2^25 entry points (phase 7), the 2^24 pipelined stream (phase 11),
     # the 2^27 prove_big run (phase 12), the stark-101 fused prove with its
@@ -2928,6 +2946,7 @@ def main():
             "launches_prove_big_2e27": giant_launches[name],
             "launches_sharded_2e24_s8": sharded_launches[name],
             "launches_fused_stark101": main_launches[name],
+            "launches_bench": bench_launches[name],
             **({k: rows[name][k] for k in ("launch_floor_ms", "wrapper_host_ms",
                                             "param_block_bytes")} if name == "openings" else {}),
         }

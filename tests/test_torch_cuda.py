@@ -1025,3 +1025,25 @@ def test_powers_kernel(dev, n, field):
     _eq(got, powers.powers_plain(field, base, n, 11, "cpu"))
     _eq(field.powers_iota(base, n, 11), field.powers_iota(base, n, 11, device="cpu"))
     _eq(field.device_powers(base, n), field.device_powers(base, n, device="cpu"))
+
+
+def test_bench_twin_quick_on_card(dev, capsys):
+    """`tools.bench --quick` on the card: a warming line first, the last line
+    the final headline (the golden proof length is checked inside), with the
+    card's name and power limit; the defaulted device and the two defaults
+    repaired to the card."""
+    import json
+
+    from zkstark_tpu_torch.tools import bench
+    from zkstark_tpu_torch.transcript import device_channel
+
+    assert bench.main(["--quick", "--repeats", "2"]) == 0
+    records = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    last = records[-1]
+    assert records[0]["status"] == "warming"
+    assert last["metric"] == "stark101_prove_latency" and last["value"] > 0
+    assert "provisional" not in last and "skipped" not in last and "reduced" not in last
+    assert last["device"] == torch.cuda.get_device_name(dev) and last["power_limit"].endswith(" W")
+    assert last["stark101_prove_pipelined_latency"] > 0 and last["verify_seconds"] > 0
+    assert device_channel.zero_state((2,)).device.type == "cuda"
+    assert fp.powers_iota_f(fp.FIELD101, 3, 8).device.type == "cuda"

@@ -49,7 +49,7 @@ def _eq(got: torch.Tensor, want):
 
 @pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
 def test_zero_state_and_bswap(shape):
-    _eq(tdc.zero_state(shape), jdc.zero_state(shape))
+    _eq(tdc.zero_state(shape, "cpu"), jdc.zero_state(shape))
     x = _u32(shape, 1) | np.uint32(0x80000001)
     _eq(tdc.bswap32(_t(x)), jdc.bswap32(jnp.asarray(x)))
 

@@ -18,6 +18,7 @@ import zkstark_tpu.field as jfield
 from zkstark_tpu.field import fp as jfp
 import zkstark_tpu_torch.field as tfield
 from zkstark_tpu_torch.field import fp as tfp
+from zkstark_tpu_torch.transcript import device_channel as tdc
 
 PRIMES = [tfp.P, tfp.P_ALT]
 
@@ -88,7 +89,8 @@ def test_new_device_functions_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
     for fn in (lambda: tfp.device_powers(3, 8), lambda: tfp.powers_iota(3, 8),
-               lambda: tfp.device_powers_f(tfp.FIELD_ALT, 3, 8)):
+               lambda: tfp.device_powers_f(tfp.FIELD_ALT, 3, 8),
+               lambda: tfp.powers_iota_f(tfp.FIELD_ALT, 3, 8), lambda: tdc.zero_state((2,))):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             fn()
 

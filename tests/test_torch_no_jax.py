@@ -49,6 +49,6 @@ def test_package_is_covered():
                 "fri_sharded.py", "pipeline.py"):
         assert f"zkstark_tpu_torch/parallel/{new}" in names
     for new in ("ops/openings.py", "ops/elementwise.py", "ops/constants.py",
-                "tools/scaling_bench.py"):
+                "tools/scaling_bench.py", "tools/bench.py", "tools/roofline.py"):
         assert f"zkstark_tpu_torch/{new}" in names
-    assert len(names) >= 39
+    assert len(names) >= 41

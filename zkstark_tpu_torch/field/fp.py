@@ -428,7 +428,7 @@ def inv_f(f: Field, a):
     return narrow(result)
 
 
-def powers_iota_f(f: Field, base: int, n: int, scale: int = 1, device="cpu"):
+def powers_iota_f(f: Field, base: int, n: int, scale: int = 1, device="cuda"):
     """[scale·base^j for j < n] in Montgomery form on `device`, n a power of
     two: the `powers` kernel on a card (``ops/powers.py``), on the CPU its
     plain twin, each element from its own index bits."""

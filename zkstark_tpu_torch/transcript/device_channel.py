@@ -34,9 +34,9 @@ from zkstark_tpu_torch.field import fp
 from zkstark_tpu_torch.hash import sha256
 
 
-def zero_state(batch_shape: tuple = (), device="cpu") -> torch.Tensor:
+def zero_state(batch_shape: tuple = (), device="cuda") -> torch.Tensor:
     """The channel's initial all-zero 32-byte state (channel.rs:13-16)."""
-    return fp.zeros(tuple(batch_shape) + (8,), device)
+    return fp.zeros(tuple(batch_shape) + (8,), fp.resolve_device(device))
 
 
 def bswap32(x: torch.Tensor) -> torch.Tensor:
