@@ -1,0 +1,8 @@
+"""The enqueue of the Merkle trees (span `merkle`, 12 a stark-101 proof),
+warm mean a proof in ms, where the entry is `prove` (``spans.py``)."""
+
+from proofbench import spans
+
+
+def read(run):
+    return spans.warm_ms(run, ["merkle"], entry="prove")

@@ -129,8 +129,22 @@ def test_proof_file_equals_jax_cli(tmp_path, capsys, name):
 def test_run_profile_writes_chrome_trace(tmp_path, capsys):
     prof = tmp_path / "prof"
     assert main(CPU + ["--json", "--trace-len", "15", "--blowup", "4", "run", "--profile", str(prof)]) == 0
-    assert _last_json(capsys)["checks_passed"] == 5
-    assert json.loads((prof / "trace.json").read_text())["traceEvents"]
+    rec = _last_json(capsys)
+    assert rec["checks_passed"] == 5
+    events = json.loads((prof / "trace.json").read_text())["traceEvents"]
+    assert events
+    # the profiled prove's spans over its kernels (tracing.annotate()): the
+    # fused core and, inside it, its trees, one a commit
+    spans = [e for e in events if e.get("ph") == "X" and e["name"] in ("enqueue", "merkle")]
+    enqueue = [e for e in spans if e["name"] == "enqueue"]
+    merkle = [e for e in spans if e["name"] == "merkle"]
+    assert len(enqueue) == 1 and len(merkle) == 2 + 4  # f, cp and 4 FRI layers at 64 points
+    assert all(enqueue[0]["ts"] <= e["ts"] and e["ts"] + e["dur"] <= enqueue[0]["ts"] + enqueue[0]["dur"]
+               for e in merkle)
+    # `run` reports the tracer's totals of the process: here at least the
+    # warm-up prove and the profiled one
+    assert rec["spans"]["spans"]["prove"]["count"] >= 2
+    assert rec["spans"]["spans"]["merkle"]["count"] >= 2 * (2 + 4)
 
 
 def test_device_cuda_without_a_card_exits_nonzero(tmp_path):

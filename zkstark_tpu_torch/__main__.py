@@ -71,10 +71,12 @@ def _emit(args, payload: dict):
 
 
 def _device_report(dev: torch.device) -> dict:
-    """Where the proof ran and which CUDA kernels it launched."""
-    from zkstark_tpu_torch import ops
+    """Where the proof ran, which CUDA kernels it launched, and the tracer's
+    spans and counters of the process (``tracing.totals()``)."""
+    from zkstark_tpu_torch import ops, tracing
 
-    rec = {"device": str(dev), "kernel_launches": ops.launch_counts()}
+    rec = {"device": str(dev), "kernel_launches": ops.launch_counts(),
+           "spans": tracing.totals()}
     if dev.type == "cuda":
         rec["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
     return rec
@@ -146,8 +148,11 @@ def cmd_verify(args, dev) -> int:
 
 
 def _profiler(out_dir: str, dev: torch.device):
-    """torch.profiler over the block; a Chrome trace lands in out_dir."""
+    """torch.profiler over the block, the tracer's spans annotated on its
+    timeline (``tracing.annotate()``); a Chrome trace lands in out_dir."""
     from torch.profiler import ProfilerActivity, profile
+
+    from zkstark_tpu_torch import tracing
 
     acts = [ProfilerActivity.CPU]
     if dev.type == "cuda":
@@ -157,7 +162,10 @@ def _profiler(out_dir: str, dev: torch.device):
     def save(prof):
         prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
 
-    return profile(activities=acts, on_trace_ready=save)
+    stack = contextlib.ExitStack()
+    stack.enter_context(profile(activities=acts, on_trace_ready=save))
+    stack.enter_context(tracing.annotate())
+    return stack
 
 
 def cmd_run(args, dev) -> int:
@@ -258,7 +266,7 @@ def main(argv=None) -> int:
         default=None,
         metavar="DIR",
         help="write a torch.profiler Chrome trace (DIR/trace.json) of one "
-        "warm prove",
+        "warm prove, the prover's spans over its kernels",
     )
     r.set_defaults(fn=cmd_run)
 

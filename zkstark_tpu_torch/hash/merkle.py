@@ -29,6 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from zkstark_tpu_torch import tracing
 from zkstark_tpu_torch.field import fp
 from zkstark_tpu_torch.hash import sha256
 from zkstark_tpu_torch.ntt.core import bit_reverse_indices
@@ -117,33 +118,35 @@ def build_levels_batch(values: torch.Tensor, room: torch.Tensor | None = None) -
     call on the flat (B·k) hash axis: n is even, so children 2j and 2j+1 of
     any parent lie in one tree and pairs never cross trees. The narrow levels
     (the whole tree, if it is small) are one call for all B trees."""
-    bsz, n = values.shape
-    assert n >= 1 and n & (n - 1) == 0
-    tail = 2 * sha256_kernel.TAIL_PARENTS  # children a tree the tail call takes
-    flat = fp.as_u32(fp.as_i32(values).reshape(bsz * n))
-    if room is None:
-        whole, head = torch.empty(level_offset(n, n.bit_length(), bsz), dtype=torch.uint32,
-                                  device=values.device), 0
-    else:
-        whole, head = room, values_words(bsz, n)
-        if (values.data_ptr() != room.data_ptr()
-                or room.numel() != head + level_offset(n, n.bit_length(), bsz)):
-            raise ValueError("build_levels_batch: `room` is not the allocation that "
-                             "tree_values made for these values")
-    buf = whole[head:]
-    if 2 <= n <= tail:
-        if flat.data_ptr() % 8:  # a view at an odd word: the kernel reads pairs
-            flat = flat.clone()
-        return Levels(sha256_kernel.tree_tail(flat, bsz, from_values=True, out=buf), whole, head)
-    levels = _level_views(buf, bsz, n)
-    level = sha256_kernel.leaf_hash(flat, out=levels[0].view(bsz * n, 8))
-    lv = 0
-    while n >> lv > 2 * sha256_kernel.TAIL_PARENTS:
-        lv += 1
-        level = sha256_kernel.node_hash_pairs(level, out=levels[lv].view(-1, 8))
-    if n >> lv > 1:
-        sha256_kernel.tree_tail(level, bsz, out=buf[level_offset(n, lv + 1, bsz):])
-    return Levels(levels, whole, head)
+    with tracing.span("merkle"):
+        bsz, n = values.shape
+        assert n >= 1 and n & (n - 1) == 0
+        tail = 2 * sha256_kernel.TAIL_PARENTS  # children a tree the tail call takes
+        flat = fp.as_u32(fp.as_i32(values).reshape(bsz * n))
+        if room is None:
+            whole, head = torch.empty(level_offset(n, n.bit_length(), bsz), dtype=torch.uint32,
+                                      device=values.device), 0
+        else:
+            whole, head = room, values_words(bsz, n)
+            if (values.data_ptr() != room.data_ptr()
+                    or room.numel() != head + level_offset(n, n.bit_length(), bsz)):
+                raise ValueError("build_levels_batch: `room` is not the allocation that "
+                                 "tree_values made for these values")
+        buf = whole[head:]
+        if 2 <= n <= tail:
+            if flat.data_ptr() % 8:  # a view at an odd word: the kernel reads pairs
+                flat = flat.clone()
+            return Levels(sha256_kernel.tree_tail(flat, bsz, from_values=True, out=buf), whole,
+                          head)
+        levels = _level_views(buf, bsz, n)
+        level = sha256_kernel.leaf_hash(flat, out=levels[0].view(bsz * n, 8))
+        lv = 0
+        while n >> lv > 2 * sha256_kernel.TAIL_PARENTS:
+            lv += 1
+            level = sha256_kernel.node_hash_pairs(level, out=levels[lv].view(-1, 8))
+        if n >> lv > 1:
+            sha256_kernel.tree_tail(level, bsz, out=buf[level_offset(n, lv + 1, bsz):])
+        return Levels(levels, whole, head)
 
 
 @functools.lru_cache(maxsize=8)
@@ -169,16 +172,17 @@ def build_levels(values: torch.Tensor, planar_stop: int | None = None) -> list:
     if planar_stop is None:
         levels = build_levels_batch(values[None])
         return Levels([level[0] for level in levels], levels.buffer, levels.head)
-    n = values.shape[0]
-    assert n >= 2 and n & (n - 1) == 0 and planar_stop >= 1
-    vals = fp.as_u32(fp.as_i32(values).index_select(0, _bitrev(n, values.device)))
-    planes = sha256_kernel.leaf_planes(vals)
-    levels = [planar_to_natural(planes)]
-    while planes.shape[1] // 2 >= planar_stop:
-        planes = sha256_kernel.node_planes_folded(planes)
-        levels.append(planar_to_natural(planes))
-    k = levels[-1].shape[0]
-    return levels + [level[0] for level in _levels_above(levels[-1], 1, k)]
+    with tracing.span("merkle"):
+        n = values.shape[0]
+        assert n >= 2 and n & (n - 1) == 0 and planar_stop >= 1
+        vals = fp.as_u32(fp.as_i32(values).index_select(0, _bitrev(n, values.device)))
+        planes = sha256_kernel.leaf_planes(vals)
+        levels = [planar_to_natural(planes)]
+        while planes.shape[1] // 2 >= planar_stop:
+            planes = sha256_kernel.node_planes_folded(planes)
+            levels.append(planar_to_natural(planes))
+        k = levels[-1].shape[0]
+        return levels + [level[0] for level in _levels_above(levels[-1], 1, k)]
 
 
 @dataclass

@@ -18,10 +18,11 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 
 import torch
+
+from zkstark_tpu_torch import tracing
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "zkstark_tpu_torch"
@@ -100,7 +101,6 @@ _SIGNATURES = {
     "zk_empty": (_P,),
 }
 
-build_seconds = 0.0  # wall time of the last nvcc run in this process
 build_log = ""  # nvcc's output of that run (-Xptxas -v: registers, spills)
 
 
@@ -167,22 +167,23 @@ def _compile(cu: list, so: Path) -> str:
 @functools.lru_cache(maxsize=1)
 def kernels() -> ctypes.CDLL:
     """The loaded kernel library, compiled first if this source hash has no
-    library yet."""
-    global build_seconds, build_log
+    library yet (the spans `library.build`, nvcc's wall time, and
+    `library.load`)."""
+    global build_log
     cu, key = _sources()
     so = BUILD_DIR / f"libzkstark_kernels_{key}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        t0 = time.perf_counter()
-        build_log = _compile(cu, so)
-        build_seconds = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(so))
-    for name, args in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(args)
-        fn.restype = ctypes.c_int
-    lib.zk_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.zk_cuda_error_string.restype = ctypes.c_char_p
+        with tracing.span("library.build"):
+            build_log = _compile(cu, so)
+    with tracing.span("library.load"):
+        lib = ctypes.CDLL(str(so))
+        for name, args in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(args)
+            fn.restype = ctypes.c_int
+        lib.zk_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.zk_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 

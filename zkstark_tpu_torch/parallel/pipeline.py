@@ -32,7 +32,7 @@ import math
 
 import torch
 
-from zkstark_tpu_torch import ntt
+from zkstark_tpu_torch import ntt, tracing
 from zkstark_tpu_torch.field import fp
 from zkstark_tpu_torch.hash import merkle
 from zkstark_tpu_torch.ops import composition as comp_op
@@ -67,9 +67,10 @@ def build_levels(res, mesh: Mesh | None, room: torch.Tensor | None = None) -> li
     the (B, 8) root. A whole `res` made by `_tree_values` passes its `room`,
     where the levels are written after it."""
     if isinstance(res, list):
-        levels = sharded_build_levels(res, mesh)  # a ShardedLevels: keep its buffers
-        levels[:] = [lv if isinstance(lv, list) else lv[None] for lv in levels]
-        return levels
+        with tracing.span("merkle"):
+            levels = sharded_build_levels(res, mesh)  # a ShardedLevels: keep its buffers
+            levels[:] = [lv if isinstance(lv, list) else lv[None] for lv in levels]
+            return levels
     return merkle.build_levels_batch(res, room)
 
 
@@ -125,14 +126,15 @@ def fold(cfg: StarkConfig, layer: int, evals, beta_mont, mesh: Mesh | None):
     """FRI layer `layer`'s fold and tree: (folded, res, levels), beta_mont
     (B,); sharded while m/2 ≥ S, else whole (a sharded layer is gathered
     first)."""
-    if isinstance(evals, list) and evals[0].shape[0] * mesh.size // 2 >= mesh.size:
-        inv_base, inv_off = pr._fri_layer_params(cfg, layer)
-        folded, res = fold_sharded(evals, beta_mont, inv_base, inv_off, mesh, cfg.field)
-        return folded, res, build_levels(res, mesh)
-    evals = whole(evals, mesh)
-    res, room = _tree_values(evals.shape[:-1] + (evals.shape[-1] // 2,), evals.device)
-    return pr.fri_fold_eval(cfg, layer, evals, beta_mont, res_out=res,
-                            build=functools.partial(merkle.build_levels_batch, room=room))
+    with tracing.span("fold"):
+        if isinstance(evals, list) and evals[0].shape[0] * mesh.size // 2 >= mesh.size:
+            inv_base, inv_off = pr._fri_layer_params(cfg, layer)
+            folded, res = fold_sharded(evals, beta_mont, inv_base, inv_off, mesh, cfg.field)
+            return folded, res, build_levels(res, mesh)
+        evals = whole(evals, mesh)
+        res, room = _tree_values(evals.shape[:-1] + (evals.shape[-1] // 2,), evals.device)
+        return pr.fri_fold_eval(cfg, layer, evals, beta_mont, res_out=res,
+                                build=functools.partial(merkle.build_levels_batch, room=room))
 
 
 def whole(value, mesh: Mesh | None) -> torch.Tensor:

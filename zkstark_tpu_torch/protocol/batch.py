@@ -20,6 +20,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from zkstark_tpu_torch import tracing
 from zkstark_tpu_torch.field import fp
 from zkstark_tpu_torch.protocol import fused
 from zkstark_tpu_torch.protocol import prover as pr
@@ -33,11 +34,12 @@ __all__ = ["fused_core_batch", "prove_batch", "prove_batch_pipelined"]
 def _witnesses(cfg: StarkConfig, secrets, offset: int = 0) -> np.ndarray:
     """(B, trace_len) Montgomery witnesses (host), each checked against the
     public boundary."""
-    traces = np.stack([cfg.air.trace(cfg.trace_len, s, cfg.field.p) for s in secrets])
-    for i, s in enumerate(secrets):
-        if int(traces[i, -1]) != cfg.boundary_last:
-            raise ValueError(f"witness {offset + i} (secret {s}) fails the public boundary")
-    return cfg.field.host_to_mont(traces)
+    with tracing.span("witness"):
+        traces = np.stack([cfg.air.trace(cfg.trace_len, s, cfg.field.p) for s in secrets])
+        for i, s in enumerate(secrets):
+            if int(traces[i, -1]) != cfg.boundary_last:
+                raise ValueError(f"witness {offset + i} (secret {s}) fails the public boundary")
+        return cfg.field.host_to_mont(traces)
 
 
 def _dispatch_batch(cfg: StarkConfig, secrets, device: torch.device) -> fused.PendingFetch:
@@ -72,10 +74,11 @@ def prove_batch(cfg: StarkConfig, secrets, device="cuda", mesh=None,
     by the first shard of its group (the others along the remaining axes hold
     it replicated); every process returns all B proofs."""
     secrets = list(secrets)
-    if mesh is None:
-        dev = pr.resolve_device(device)
-        return _finish_batch(cfg, secrets, _dispatch_batch(cfg, secrets, dev).wait())
-    return _prove_batch_mesh(cfg, secrets, mesh, data_axis)
+    with tracing.span("prove_batch"):
+        if mesh is None:
+            dev = pr.resolve_device(device)
+            return _finish_batch(cfg, secrets, _dispatch_batch(cfg, secrets, dev).wait())
+        return _prove_batch_mesh(cfg, secrets, mesh, data_axis)
 
 
 def _prove_batch_mesh(cfg: StarkConfig, secrets: list, mesh, data_axis) -> list[Proof]:
@@ -116,15 +119,16 @@ def prove_batch_pipelined(cfg: StarkConfig, secret_batches, depth: int = 2, devi
     host work of one batch (B witnesses before, B replays and serializations
     after) overlaps the next batch's kernels instead of following them. The
     bytes equal `prove_batch` and solo `prove`."""
-    dev = pr.resolve_device(device)
-    pending, proofs = deque(), []
-    for secrets in secret_batches:
-        secrets = list(secrets)
-        pending.append((secrets, _dispatch_batch(cfg, secrets, dev)))
-        if len(pending) > depth:
+    with tracing.span("prove_batch_pipelined"):
+        dev = pr.resolve_device(device)
+        pending, proofs = deque(), []
+        for secrets in secret_batches:
+            secrets = list(secrets)
+            pending.append((secrets, _dispatch_batch(cfg, secrets, dev)))
+            if len(pending) > depth:
+                batch, fetch = pending.popleft()
+                proofs.extend(_finish_batch(cfg, batch, fetch.wait()))
+        while pending:
             batch, fetch = pending.popleft()
             proofs.extend(_finish_batch(cfg, batch, fetch.wait()))
-    while pending:
-        batch, fetch = pending.popleft()
-        proofs.extend(_finish_batch(cfg, batch, fetch.wait()))
-    return proofs
+        return proofs

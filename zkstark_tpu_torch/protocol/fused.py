@@ -38,6 +38,7 @@ import functools
 import numpy as np
 import torch
 
+from zkstark_tpu_torch import tracing
 from zkstark_tpu_torch.field import fp
 from zkstark_tpu_torch.ops import fs_chain
 from zkstark_tpu_torch.parallel import pipeline as pl
@@ -54,6 +55,7 @@ from zkstark_tpu_torch.transcript import device_channel as dc
 
 
 @functools.lru_cache(maxsize=16)
+@tracing.on_miss("_zero_state")
 def _zero_state(bsz: int, device: torch.device) -> torch.Tensor:
     """B channels' zero state on `device`, made once: the chain kernel reads
     it and writes a new state, so no prove fills it again."""
@@ -71,6 +73,12 @@ def fused_core_batch_packed(cfg: StarkConfig, traces_mont: torch.Tensor,
     its constant tables are cached (after one prove of the config on the
     device). With a `mesh`, B = 1 and the program is sharded over the
     evaluation domain; the vector is whole on every process."""
+    with tracing.span("enqueue"):
+        return _core(cfg, traces_mont, mesh)
+
+
+def _core(cfg: StarkConfig, traces_mont: torch.Tensor, mesh) -> torch.Tensor:
+    """The body of `fused_core_batch_packed`."""
     fld = cfg.field
     bsz = traces_mont.shape[0]
     dev = traces_mont.device
@@ -78,8 +86,9 @@ def fused_core_batch_packed(cfg: StarkConfig, traces_mont: torch.Tensor,
         raise ValueError(f"a sharded core proves one trace, not {bsz}")
 
     # ---- Phase 1: interpolate + LDE + commit (prover.rs:24-85) ----
-    coeffs = air.interpolate_trace(traces_mont, cfg.trace_domain, fld)
-    f_eval = pl.lde(cfg, coeffs, mesh)
+    with tracing.span("lde"):
+        coeffs = air.interpolate_trace(traces_mont, cfg.trace_domain, fld)
+        f_eval = pl.lde(cfg, coeffs, mesh)
     f_res, f_levels = pl.commit_lde(cfg, f_eval, mesh)
 
     # ---- Phase 2: composition (prover.rs:87-180). Every draw the host
@@ -92,10 +101,11 @@ def fused_core_batch_packed(cfg: StarkConfig, traces_mont: torch.Tensor,
         return draws[:, at : at + (cols[which][1] if count is None else count)]
 
     state = _zero_state(bsz, dev)
-    state, _, alphas_mont, _ = fs_chain.chain_step(
-        state, digest=f_levels[-1][:, 0], draws=cfg.n_constraints, field=fld,
-        draws_out=column(0),
-    )
+    with tracing.span("chain"):
+        state, _, alphas_mont, _ = fs_chain.chain_step(
+            state, digest=f_levels[-1][:, 0], draws=cfg.n_constraints, field=fld,
+            draws_out=column(0),
+        )
     cp, cp_res, cp_levels = pl.composition(cfg, f_eval, alphas_mont, mesh)
     del f_eval, coeffs
 
@@ -104,10 +114,11 @@ def fused_core_batch_packed(cfg: StarkConfig, traces_mont: torch.Tensor,
     layer_res, layer_levels = [cp_res], [cp_levels]
     evals = cp
     for layer in range(cfg.fri_rounds):
-        state, _, beta_mont, _ = fs_chain.chain_step(
-            state, digest=layer_levels[-1][-1][:, 0], draws=1, field=fld,
-            draws_out=column(1, layer, 1),
-        )
+        with tracing.span("chain"):
+            state, _, beta_mont, _ = fs_chain.chain_step(
+                state, digest=layer_levels[-1][-1][:, 0], draws=1, field=fld,
+                draws_out=column(1, layer, 1),
+            )
         evals, res, levels = pl.fold(cfg, layer, evals, beta_mont[:, 0], mesh)
         layer_res.append(res)
         layer_levels.append(levels)
@@ -116,10 +127,11 @@ def fused_core_batch_packed(cfg: StarkConfig, traces_mont: torch.Tensor,
     # ---- Phase 4 prologue: the last root, the free term (read in place),
     # then every query draw before any opening (prover.rs:263, generalised to
     # n_queries) ----
-    fs_chain.chain_step(
-        state, digest=layer_levels[-1][-1][:, 0], word=last[:, 0], draws=cfg.n_queries,
-        field=fld, query_range=cfg.query_range, mod_out=column(2),
-    )
+    with tracing.span("chain"):
+        fs_chain.chain_step(
+            state, digest=layer_levels[-1][-1][:, 0], word=last[:, 0], draws=cfg.n_queries,
+            field=fld, query_range=cfg.query_range, mod_out=column(2),
+        )
     return pl.packed(cfg, f_res, f_levels, layer_res, layer_levels, draws, mesh)
 
 
@@ -190,6 +202,7 @@ class PendingFetch:
 
     def wait(self) -> np.ndarray:
         """The fetched words as a uint32 numpy array."""
-        if self.event is not None:
-            self.event.synchronize()
-        return self.host.numpy().view(np.uint32)
+        with tracing.span("wait"):
+            if self.event is not None:
+                self.event.synchronize()
+            return self.host.numpy().view(np.uint32)

@@ -23,19 +23,21 @@
     `device_phases` runs everything that touches the device (through the
     query draws and the fetch of the openings) and `decommit` the rest; the
     checkpoint (``protocol/checkpoint.py``) saves at that seam and at each
-    phase, and the per-phase `timings` spans exist on this path only.
+    phase.
+
+Both paths time themselves through ``tracing.py``'s spans, which never wait
+for the device; `prove(timings=)` adds waits between them.
 """
 
 from __future__ import annotations
 
 import functools
-import time
 from collections import deque
 
 import numpy as np
 import torch
 
-from zkstark_tpu_torch import ntt
+from zkstark_tpu_torch import ntt, tracing
 from zkstark_tpu_torch.field import fp
 from zkstark_tpu_torch.field.fp import resolve_device
 from zkstark_tpu_torch.hash import merkle
@@ -79,6 +81,7 @@ class _ByteBoundedCache:
         self._entries[key] = value
         while len(self._entries) > 1 and self.cached_bytes() > _CONST_CACHE_BYTES:
             del self._entries[next(iter(self._entries))]
+            tracing.count("cache.evict")
         return value
 
     def cached_bytes(self) -> int:
@@ -89,6 +92,7 @@ class _ByteBoundedCache:
 
 
 @_ByteBoundedCache
+@tracing.on_miss("composition_constants")
 def composition_constants(cfg: StarkConfig, device) -> torch.Tensor:
     """One inverse denominator per constraint and point of the coset domain,
     in alpha order, as one (n_constraints, d) uint32 Montgomery tensor on
@@ -120,6 +124,7 @@ def composition_constants(cfg: StarkConfig, device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
+@tracing.on_miss("constants_system")
 def constants_system(cfg: StarkConfig) -> constants.System:
     """The config's denominators encoded for ``ops/constants.py``."""
     p, g = cfg.field.p, cfg.trace_generator
@@ -174,6 +179,7 @@ def coset_domain(cfg: StarkConfig, device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
+@tracing.on_miss("composition_program")
 def composition_program(cfg: StarkConfig) -> composition.Program:
     """The config's constraint system as the device program of
     ``ops/composition.py``."""
@@ -286,23 +292,15 @@ class ProverArtifacts:
         return self.query_indices[0] if self.query_indices else None
 
 
-class _PhaseClock:
-    """Named wall-clock spans into a caller-supplied dict; each lap first
-    waits for the device. Does nothing when timings is None."""
-
-    def __init__(self, timings: dict | None, device: torch.device):
-        self.timings = timings
-        self.device = device
-        self.t0 = time.perf_counter()
-
-    def lap(self, name: str):
-        if self.timings is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.timings[name] = self.timings.get(name, 0.0) + now - self.t0
-        self.t0 = now
+def _lap(timings: dict | None, key: str, dev: torch.device, *spans: str) -> None:
+    """Add to `timings[key]` the seconds of the latest spans `spans` and of a
+    wait for the device (the span `sync`); nothing when timings is None."""
+    if timings is None:
+        return
+    with tracing.span("sync"):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    timings[key] = timings.get(key, 0.0) + sum(map(tracing.last_ns, (*spans, "sync"))) * 1e-9
 
 
 def _root_bytes(levels: list) -> bytes:
@@ -323,23 +321,26 @@ def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     the current stream (a copy from pageable memory would first wait for
     every kernel already enqueued, which is what pipelined proving must not
     do)."""
-    if device.type != "cuda":
-        return fp.from_host(arr, device)
-    staged = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.uint32).view(np.int32))
-    return fp.as_u32(staged.pin_memory().to(device, non_blocking=True))
+    with tracing.span("upload"):
+        if device.type != "cuda":
+            return fp.from_host(arr, device)
+        staged = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.uint32).view(np.int32))
+        return fp.as_u32(staged.pin_memory().to(device, non_blocking=True))
 
 
 def trace_to_device(cfg: StarkConfig, secret: int, device) -> torch.Tensor:
     """The witness (host) in Montgomery form on `device`; raises ValueError
     if it does not meet the public boundary."""
     fld = cfg.field
-    trace = cfg.air.trace(cfg.trace_len, secret, fld.p)
-    if int(trace[-1]) != cfg.boundary_last:
-        raise ValueError(
-            "witness does not satisfy the public boundary: trace endpoint "
-            f"{int(trace[-1])} != {cfg.boundary_last}"
-        )
-    return upload(fld.host_to_mont(trace), torch.device(device))
+    with tracing.span("witness"):
+        trace = cfg.air.trace(cfg.trace_len, secret, fld.p)
+        if int(trace[-1]) != cfg.boundary_last:
+            raise ValueError(
+                "witness does not satisfy the public boundary: trace endpoint "
+                f"{int(trace[-1])} != {cfg.boundary_last}"
+            )
+        mont = fld.host_to_mont(trace)
+    return upload(mont, torch.device(device))
 
 
 def phase1(cfg: StarkConfig, channel: Channel, trace_mont: torch.Tensor):
@@ -392,23 +393,27 @@ def device_phases(
     device,
     channel: Channel,
     artifacts: ProverArtifacts | None = None,
-    clock: _PhaseClock | None = None,
+    timings: dict | None = None,
 ):
     """Everything of a proof that touches the device: the witness upload,
     phases 1–3, the query draws and the openings. Returns the host openings
     and the queries; what is left is `decommit`, host only. This is the
-    checkpoint's last barrier (protocol/checkpoint.py, phase "fused")."""
+    checkpoint's last barrier (protocol/checkpoint.py, phase "fused").
+    `timings`: as `prove(fused=False)` fills it, less `phase4_decommit`."""
     dev = resolve_device(device)
-    clock = clock or _PhaseClock(None, dev)
     trace_mont = trace_to_device(cfg, secret, dev)
-    clock.lap("trace")
-    f_eval, f_res, f_levels = phase1(cfg, channel, trace_mont)
-    clock.lap("phase1_lde_commit")
-    cp_eval, cp_res, cp_levels = phase2(cfg, channel, f_eval)
-    clock.lap("phase2_composition")
-    layer_res, layer_levels = phase3_fri(cfg, channel, cp_eval, cp_res, cp_levels)
-    clock.lap("phase3_fri")
-    out, queries = phase4_openings(cfg, channel, f_res, f_levels, layer_res, layer_levels)
+    _lap(timings, "trace", dev, "witness", "upload")
+    with tracing.span("phase1_lde_commit"):
+        f_eval, f_res, f_levels = phase1(cfg, channel, trace_mont)
+    _lap(timings, "phase1_lde_commit", dev, "phase1_lde_commit")
+    with tracing.span("phase2_composition"):
+        cp_eval, cp_res, cp_levels = phase2(cfg, channel, f_eval)
+    _lap(timings, "phase2_composition", dev, "phase2_composition")
+    with tracing.span("phase3_fri"):
+        layer_res, layer_levels = phase3_fri(cfg, channel, cp_eval, cp_res, cp_levels)
+    _lap(timings, "phase3_fri", dev, "phase3_fri")
+    with tracing.span("phase4_openings"):
+        out, queries = phase4_openings(cfg, channel, f_res, f_levels, layer_res, layer_levels)
     if artifacts is not None:
         artifacts.f_res, artifacts.f_tree = f_res, merkle.MerkleTree(levels=f_levels)
         artifacts.layer_res = layer_res
@@ -420,29 +425,30 @@ def device_phases(
 def decommit(cfg: StarkConfig, channel: Channel, out: dict, queries: list) -> Proof:
     """Phase 4 from the fetched openings, then the final state; commit order
     is the reference's (prover.rs:256-289), generalised to n_queries."""
-    for qi in range(len(queries)):
-        for si in range(len(cfg.air.shifts)):
+    with tracing.span("decommit"):
+        for qi in range(len(queries)):
+            for si in range(len(cfg.air.shifts)):
+                channel.commit_bytes(
+                    bincode.ser_opening(
+                        int(out["open_f_vals"][qi][si]),
+                        _path_bytes(out["open_f_paths"][qi][si]),
+                    )
+                )
             channel.commit_bytes(
                 bincode.ser_opening(
-                    int(out["open_f_vals"][qi][si]),
-                    _path_bytes(out["open_f_paths"][qi][si]),
+                    int(out["open_cp_vals"][qi]), _path_bytes(out["open_cp_paths"][qi])
                 )
             )
-        channel.commit_bytes(
-            bincode.ser_opening(
-                int(out["open_cp_vals"][qi]), _path_bytes(out["open_cp_paths"][qi])
-            )
-        )
-        for layer in range(cfg.fri_rounds):
-            v = out["open_fri_vals"][layer][qi]
-            p = out["open_fri_paths"][layer][qi]
-            channel.commit_bytes(
-                bincode.ser_fri_opening(
-                    int(v[0]), int(v[1]), _path_bytes(p[0]), _path_bytes(p[1])
+            for layer in range(cfg.fri_rounds):
+                v = out["open_fri_vals"][layer][qi]
+                p = out["open_fri_paths"][layer][qi]
+                channel.commit_bytes(
+                    bincode.ser_fri_opening(
+                        int(v[0]), int(v[1]), _path_bytes(p[0]), _path_bytes(p[1])
+                    )
                 )
-            )
-    state, data = channel.finalize()
-    return Proof(state=state, data=data)
+        state, data = channel.finalize()
+        return Proof(state=state, data=data)
 
 
 def fused_replay(cfg: StarkConfig, channel: Channel, out: dict) -> list:
@@ -451,24 +457,25 @@ def fused_replay(cfg: StarkConfig, channel: Channel, out: dict) -> list:
     host-derived challenge equals the device-derived one: each proof holds
     the device chain against the host chain. `out` is one proof's fetched
     `fused_core` dict (numpy). Returns the query indices."""
-    roots = out["roots"]
-    channel.commit_hash(digest_to_bytes(roots[0]))
-    for k in range(cfg.n_constraints):
-        if channel.get_u32() != int(out["alphas"][k]):
-            raise DeviceChannelMismatch(f"alpha[{k}]")
-    channel.commit_hash(digest_to_bytes(roots[1]))
-    for layer in range(cfg.fri_rounds):
-        if channel.get_u32() != int(out["betas"][layer]):
-            raise DeviceChannelMismatch(f"beta[{layer}]")
-        channel.commit_hash(digest_to_bytes(roots[2 + layer]))
-    channel.commit_u32(int(out["free_term"]))
-    queries = []
-    for qi in range(cfg.n_queries):
-        x = channel.get_u32() % cfg.query_range
-        if x != int(out["queries"][qi]):
-            raise DeviceChannelMismatch(f"query index {qi}")
-        queries.append(x)
-    return queries
+    with tracing.span("replay"):
+        roots = out["roots"]
+        channel.commit_hash(digest_to_bytes(roots[0]))
+        for k in range(cfg.n_constraints):
+            if channel.get_u32() != int(out["alphas"][k]):
+                raise DeviceChannelMismatch(f"alpha[{k}]")
+        channel.commit_hash(digest_to_bytes(roots[1]))
+        for layer in range(cfg.fri_rounds):
+            if channel.get_u32() != int(out["betas"][layer]):
+                raise DeviceChannelMismatch(f"beta[{layer}]")
+            channel.commit_hash(digest_to_bytes(roots[2 + layer]))
+        channel.commit_u32(int(out["free_term"]))
+        queries = []
+        for qi in range(cfg.n_queries):
+            x = channel.get_u32() % cfg.query_range
+            if x != int(out["queries"][qi]):
+                raise DeviceChannelMismatch(f"query index {qi}")
+            queries.append(x)
+        return queries
 
 
 def finish_fused(cfg: StarkConfig, out: dict, artifacts: ProverArtifacts | None = None,
@@ -503,10 +510,15 @@ def prove(
     the host replays the transcript and checks every challenge against the
     device's. `artifacts` then receives the query indices only. `timings`, if
     given, is filled with the spans `trace`, `device_program`, `fetch` and
-    `replay_decommit`, in seconds; each span waits for the device.
+    `replay_decommit`, in seconds, each followed by a wait for the device:
+    from ``tracing.py``'s spans, `trace` = witness + upload, `device_program`
+    = enqueue, `fetch` the fetch and unpacking, `replay_decommit` = replay +
+    decommit, each with its wait. Only with `timings` does the prover wait
+    between its steps.
     fused=False: the host-synced path (`device_phases`, then `decommit`), one
     fetch per commit, with the spans `trace`, `phase1_lde_commit`,
-    `phase2_composition`, `phase3_fri` and `phase4_decommit`.
+    `phase2_composition`, `phase3_fri` and `phase4_decommit`, each ending
+    with a wait for the device likewise.
 
     mesh: a ``parallel.mesh.Mesh`` — the fused program sharded over the
     evaluation domain on the mesh's device (`device` is then not read); the
@@ -520,25 +532,26 @@ def prove(
     `DeviceChannelMismatch` there, as the JAX package's does."""
     if mesh is not None and not fused:
         raise ValueError("sharded proving requires the fused path")
-    dev = mesh.device if mesh is not None else resolve_device(device)
-    clock = _PhaseClock(timings, dev)
-    if fused:
-        from zkstark_tpu_torch.protocol import fused as fused_mod
+    with tracing.span("prove"):
+        dev = mesh.device if mesh is not None else resolve_device(device)
+        if fused:
+            from zkstark_tpu_torch.protocol import fused as fused_mod
 
-        trace_mont = trace_to_device(cfg, secret, dev)
-        clock.lap("trace")
-        pending = fused_mod.PendingFetch(fused_mod.fused_core_packed(cfg, trace_mont, mesh))
-        clock.lap("device_program")
-        out = fused_mod.unpack_out(cfg, pending.wait())
-        clock.lap("fetch")
-        proof = finish_fused(cfg, out, artifacts, channel)
-        clock.lap("replay_decommit")
+            trace_mont = trace_to_device(cfg, secret, dev)
+            _lap(timings, "trace", dev, "witness", "upload")
+            flat = fused_mod.fused_core_packed(cfg, trace_mont, mesh)
+            _lap(timings, "device_program", dev, "enqueue")
+            with tracing.span("fetch"):
+                out = fused_mod.unpack_out(cfg, fused_mod.PendingFetch(flat).wait())
+            _lap(timings, "fetch", dev, "fetch")
+            proof = finish_fused(cfg, out, artifacts, channel)
+            _lap(timings, "replay_decommit", dev, "replay", "decommit")
+            return proof
+        channel = Channel() if channel is None else channel
+        out, queries = device_phases(cfg, secret, dev, channel, artifacts, timings)
+        proof = decommit(cfg, channel, out, queries)
+        _lap(timings, "phase4_decommit", dev, "phase4_openings", "decommit")
         return proof
-    channel = Channel() if channel is None else channel
-    out, queries = device_phases(cfg, secret, dev, channel, artifacts, clock)
-    proof = decommit(cfg, channel, out, queries)
-    clock.lap("phase4_decommit")
-    return proof
 
 
 def prove_pipelined(cfg: StarkConfig, secrets, depth: int = 2, device="cuda") -> list:
@@ -553,17 +566,18 @@ def prove_pipelined(cfg: StarkConfig, secrets, depth: int = 2, device="cuda") ->
     the other and the tensors of one are freed for the next."""
     from zkstark_tpu_torch.protocol import fused as fused_mod
 
-    dev = resolve_device(device)
-    pending, proofs = deque(), []
+    with tracing.span("prove_pipelined"):
+        dev = resolve_device(device)
+        pending, proofs = deque(), []
 
-    def finish():
-        proofs.append(finish_fused(cfg, fused_mod.unpack_out(cfg, pending.popleft().wait())))
+        def finish():
+            proofs.append(finish_fused(cfg, fused_mod.unpack_out(cfg, pending.popleft().wait())))
 
-    for s in secrets:
-        trace_mont = trace_to_device(cfg, s, dev)
-        pending.append(fused_mod.PendingFetch(fused_mod.fused_core_packed(cfg, trace_mont)))
-        if len(pending) > depth:
+        for s in secrets:
+            trace_mont = trace_to_device(cfg, s, dev)
+            pending.append(fused_mod.PendingFetch(fused_mod.fused_core_packed(cfg, trace_mont)))
+            if len(pending) > depth:
+                finish()
+        while pending:
             finish()
-    while pending:
-        finish()
-    return proofs
+        return proofs

@@ -42,7 +42,7 @@ Where it differs from ``bench.py``:
   null: the peaks are not the CPU's.
 * In place of the compilation cache the kernels are built once
   (``ops._build.kernels``) before the warm-up prove, with ``build_seconds`` on
-  stderr, so that ``warmup_prove_seconds`` holds no nvcc.
+  stderr (``nvcc_seconds``: the tracer's ``library.build`` span), so that ``warmup_prove_seconds`` holds no nvcc.
 * Every record carries ``device`` (the card's name, or ``"cpu"``) and
   ``power_limit`` (nvidia-smi's, or null); the numbers are not rounded; the
   kernel launches of the run go to stderr (``ops.launch_counts``).
@@ -351,7 +351,7 @@ def run(
     record it printed. The keyword-only sizes default to ``bench.py``'s
     (`batch_proofs` None: `batch`); the metric names stay ``bench.py``'s
     whatever the sizes."""
-    from zkstark_tpu_torch import ops
+    from zkstark_tpu_torch import ops, tracing
     from zkstark_tpu_torch.ops import _build, ntt_kernel
     from zkstark_tpu_torch.parallel.mesh import initialize_distributed
     from zkstark_tpu_torch.protocol.prover import resolve_device
@@ -378,7 +378,8 @@ def run(
         t0 = time.perf_counter()
         _build.kernels()
         eprint({"phase": "build_seconds", "value": time.perf_counter() - t0,
-                "nvcc_seconds": _build.build_seconds})
+                "nvcc_seconds": tracing.totals()["spans"].get("library.build", {}).get(
+                    "total_ns", 0) * 1e-9})
     ops.reset_launch_counts()
     bench_stark101(repeats, rec, dev, pipelined_proofs)
 
