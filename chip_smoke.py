@@ -78,7 +78,8 @@ Phases, one output line (or a few) each:
      `MAX_STARK101_SPANS` device spans, none of plain torch: besides the
      port's kernels at most one copy each of the witness's upload (the
      trace's bytes) and the fetch (the packed vector's bytes, read from the
-     profile's exported trace); its first prove (composition
+     profile's exported trace), and the two device-to-device copies of the
+     same sizes around a replay of the core's CUDA graph; its first prove (composition
      constants built cold) is the main-path run whose launches of the glue
      kernels are counted; `_plain_loops` shows no plain-torch launch left in
      the interpolation, `from_mont` and the openings (also phase 11, at 2^24);
@@ -206,12 +207,17 @@ GLUE_KERNELS = ("openings", "endpoint_fix", "from_mont", "constants")
 # the plain-torch loops the glue kernels replaced (`_plain_loops`), which must
 # launch nothing but the port's kernels
 PLAIN_LOOPS = ("interpolate_rank1_fix", "from_mont_f_eval", "opening_gathers")
-# the most device spans (kernels and copies) of one profiled stark-101 fused prove
-MAX_STARK101_SPANS = 50
+# the most device spans (kernels and copies) of one profiled stark-101 fused
+# prove: 48 kernels and the four copies below
+MAX_STARK101_SPANS = 52
 # the device spans of a fused prove that are not the port's kernels: at most
 # one copy each, the witness's upload (host to device, the trace's bytes) and
-# the packed result's fetch (device to host, the packed vector's bytes)
-COPY_SPANS = ("Memcpy HtoD", "Memcpy DtoH")
+# the packed result's fetch (device to host, the packed vector's bytes), and
+# around a replay of the core's CUDA graph (``protocol/graph.py``) the
+# witness's copy into the graph's input and the result's copy out of the
+# graph (device to device, the trace's and the packed vector's bytes)
+COPY_SPANS = (("Memcpy HtoD", "trace"), ("Memcpy DtoH", "packed"), ("Memcpy DtoD", "trace"),
+              ("Memcpy DtoD", "packed"))
 # csrc/constants.cu: the points a thread inverts with one Fermat inversion
 CONST_TILE = 8
 
@@ -2012,15 +2018,16 @@ def _copy_sizes(prof) -> list:
 
 def require_only_io_copies(busy: dict, trace_bytes: int, packed_bytes: int, what: str) -> None:
     """Raises unless every device span of `busy` that is not the port's
-    kernel is one of the fused path's two copies, each at most once: the
-    witness's upload (host to device, `trace_bytes`) and the packed result's
-    fetch (device to host, `packed_bytes`)."""
-    allowed = dict(zip(COPY_SPANS, (trace_bytes, packed_bytes)))
+    kernel is one of the fused path's copies (`COPY_SPANS`), each at most
+    once: the witness's upload (host to device, `trace_bytes`), the packed
+    result's fetch (device to host, `packed_bytes`) and, around a graph's
+    replay, the two device-to-device copies of those sizes."""
+    size = {"trace": trace_bytes, "packed": packed_bytes}
+    allowed = [(kind, size[which]) for kind, which in COPY_SPANS]
     copies = busy["copies"]
-    stray = [c for c in copies
-             if not any(c[0].startswith(k) and c[1] == size for k, size in allowed.items())]
+    stray = [c for c in copies if not any(c[0].startswith(k) and c[1] == n for k, n in allowed)]
     if (stray or sum(busy["other_spans"].values()) != len(copies)
-            or any(sum(c[0].startswith(k) for c in copies) > 1 for k in allowed)):
+            or any(sum(c[0].startswith(k) and c[1] == n for c in copies) > 1 for k, n in allowed)):
         raise AssertionError(f"plain-torch device spans in {what}: {busy['other_spans']}, "
                              f"copies {copies}; allowed: at most one each of {allowed} (bytes)")
 

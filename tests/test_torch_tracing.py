@@ -115,6 +115,12 @@ def test_timings_and_the_first_call():
          + ns("decommit") + spans["sync"]["total_ns"]) * 1e-9)
 
 
+def cache_counters() -> dict:
+    """The caches' counters (a CPU call of the fused core also counts
+    ``graph.eager``)."""
+    return {k: n for k, n in tracing.totals()["counters"].items() if k.startswith("cache.")}
+
+
 def test_cache_misses_count_new_statements(monkeypatch):
     cpu = torch.device("cpu")
     cfg, other = small(4), small(8)
@@ -123,14 +129,14 @@ def test_cache_misses_count_new_statements(monkeypatch):
     fused._zero_state(1, cpu)
     tracing.reset()
     prove(cfg, SECRET, device="cpu")
-    assert not tracing.totals()["counters"]
+    assert not cache_counters()
     assert "cache.build" not in tracing.totals()["spans"]
     pr.composition_constants.cache_clear()
     pr.composition_program.cache_clear()
     prove(other, SECRET, device="cpu")
     pr.composition_constants(other, cpu)
     pr.composition_program(other)
-    misses = tracing.totals()["counters"]
+    misses = cache_counters()
     assert misses == {"cache.miss.composition_constants": 1, "cache.miss.composition_program": 1}
     assert tracing.totals()["spans"]["cache.build"]["count"] == 2
     # the CPU takes its constants from host numpy: the card's system is built on demand

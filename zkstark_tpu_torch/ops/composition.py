@@ -43,7 +43,7 @@ import torch
 
 from zkstark_tpu_torch.field import fp
 from zkstark_tpu_torch.field.fp import FIELD101, Field
-from zkstark_tpu_torch.ops import _build, ntt_kernel
+from zkstark_tpu_torch.ops import _build, ntt_kernel, tables
 
 # opcodes of air.numerator_program and of native/zkstark_native.cpp
 OP_F, OP_X, OP_CONST, OP_ADD, OP_SUB, OP_MUL = range(6)
@@ -195,7 +195,7 @@ def composition_plain(f_eval, inv_dens, alphas, prog: Program, field: Field = FI
     return fp.narrow(acc), fp.narrow(fp.redc_w(field, 0, acc))
 
 
-@functools.lru_cache(maxsize=16)
+@tables.device_table(16)
 def _device_words(prog: Program, device: torch.device) -> torch.Tensor:
     """The program's words on `device`, uploaded once."""
     return fp.from_host(np.asarray(prog.words, dtype=np.uint32), device)

@@ -56,7 +56,7 @@ import torch
 
 from zkstark_tpu_torch.field import fp
 from zkstark_tpu_torch.field.fp import FIELD101, Field
-from zkstark_tpu_torch.ops import _build, ntt_kernel
+from zkstark_tpu_torch.ops import _build, ntt_kernel, tables
 from zkstark_tpu_torch.ops.ntt_kernel import GeoScale
 
 MIN_LIMB_ROW = 128
@@ -189,7 +189,7 @@ def limb_dft_rows_plain(
     return ntt_kernel.store_plain(out, post, uv, scale, field, period)
 
 
-@functools.lru_cache(maxsize=64)
+@tables.device_table(64)
 def _device_constants(m: int, w: int, field: Field, device: torch.device):
     """The two tile-ordered limb matrices and the in-row twiddle of a
     length-m transform with root w, on `device`, uploaded once."""

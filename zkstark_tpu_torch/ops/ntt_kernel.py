@@ -81,7 +81,7 @@ import torch
 from zkstark_tpu_torch.field import fp
 from zkstark_tpu_torch.field.fp import FIELD101, Field
 from zkstark_tpu_torch.ntt.core import bit_reverse_indices
-from zkstark_tpu_torch.ops import _build
+from zkstark_tpu_torch.ops import _build, tables
 
 MAX_ROW = 8192  # longest row one block transforms
 MIN_FOURSTEP = 1 << 14  # flat transforms from this size take the four-step glue
@@ -148,7 +148,7 @@ def _radix8_constants(m: int, w: int, field: Field) -> tuple[int, int, int]:
     )
 
 
-@functools.lru_cache(maxsize=64)
+@tables.device_table(64)
 def _device_table(table, m: int, w: int, field: Field, device: torch.device):
     """table(m, w, field) (a host numpy twiddle table) on `device`."""
     return fp.from_host(table(m, w, field), device)
@@ -175,7 +175,7 @@ def _geo_tables_host(base: int, size: int, field: Field = FIELD101):
     return field.host_to_mont(a), field.host_to_mont(b), s
 
 
-@functools.lru_cache(maxsize=256)
+@tables.device_table(256)
 def _geo_tables(base: int, size: int, field: Field, device: torch.device):
     """`_geo_tables_host` on `device`, uploaded once."""
     a, b, s = _geo_tables_host(base, size, field)
@@ -591,7 +591,7 @@ def _twiddle_uv_host(
     return field.host_to_mont(u.astype(np.uint32)), field.host_to_mont(v)
 
 
-@functools.lru_cache(maxsize=64)
+@tables.device_table(64)
 def _device_uv(
     n: int, w: int, inverse_scale: int | None, field: Field, device: torch.device,
     brev: bool = False,

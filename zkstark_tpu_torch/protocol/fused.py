@@ -12,11 +12,17 @@ host, through pinned memory behind an event (`PendingFetch`); the openings
 kernel writes that vector whole, the draws and roots included, so nothing is
 stacked or concatenated around it.
 
-PyTorch runs eagerly, so "one program" here means one uninterrupted run of
-launches on the current stream, not one compiled graph; since nothing inside
-waits, it can be captured in a CUDA graph later. The host then replays the
-byte transcript from the fetched roots and checks every challenge
-(`prover.fused_replay`).
+"One program" is one uninterrupted run of launches on the current stream,
+and since nothing inside it waits, a warm one is one CUDA graph
+(``protocol/graph.py``): on a card, below 2^20 points × B and without a
+mesh, the first call of a (config, B) runs eagerly and fills the
+per-statement caches, the second captures the launches, and every later
+call replays them with a single ``cudaGraphLaunch`` (a stark-101 core is 48
+launches whose Python enqueue costs about eight times their device time).
+A mesh (collectives), the CPU, and larger statements, where the enqueue is
+a few per cent of the device's work and a graph's private memory pool would
+hold gigabytes, stay eager. The host then replays the byte transcript from
+the fetched roots and checks every challenge (`prover.fused_replay`).
 
 Every function takes a leading batch axis: B proofs are B chains in lockstep
 and B trees hashed as one flat batch (``protocol/batch.py``); `fused_core` is
@@ -33,16 +39,15 @@ mesh size and shape.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from zkstark_tpu_torch import tracing
 from zkstark_tpu_torch.field import fp
-from zkstark_tpu_torch.ops import fs_chain
+from zkstark_tpu_torch.ops import fs_chain, tables
 from zkstark_tpu_torch.parallel import pipeline as pl
-from zkstark_tpu_torch.protocol import air
+from zkstark_tpu_torch.protocol import air, graph
+from zkstark_tpu_torch.protocol import prover as pr
 from zkstark_tpu_torch.protocol.config import StarkConfig
 from zkstark_tpu_torch.protocol.openings import (  # noqa: F401 (pack_tree, map_leaves: the module's API)
     draw_columns,
@@ -54,7 +59,7 @@ from zkstark_tpu_torch.protocol.openings import (  # noqa: F401 (pack_tree, map_
 from zkstark_tpu_torch.transcript import device_channel as dc
 
 
-@functools.lru_cache(maxsize=16)
+@tables.device_table(16)
 @tracing.on_miss("_zero_state")
 def _zero_state(bsz: int, device: torch.device) -> torch.Tensor:
     """B channels' zero state on `device`, made once: the chain kernel reads
@@ -72,9 +77,11 @@ def fused_core_batch_packed(cfg: StarkConfig, traces_mont: torch.Tensor,
     (`openings.packed_result`). Makes no call that waits for the device once
     its constant tables are cached (after one prove of the config on the
     device). With a `mesh`, B = 1 and the program is sharded over the
-    evaluation domain; the vector is whole on every process."""
+    evaluation domain; the vector is whole on every process. Warm calls on a
+    card replay a CUDA graph of the launches (the module's docstring); the
+    vector is the caller's own either way."""
     with tracing.span("enqueue"):
-        return _core(cfg, traces_mont, mesh)
+        return _GRAPHS(cfg, traces_mont, mesh)
 
 
 def _core(cfg: StarkConfig, traces_mont: torch.Tensor, mesh) -> torch.Tensor:
@@ -133,6 +140,12 @@ def _core(cfg: StarkConfig, traces_mont: torch.Tensor, mesh) -> torch.Tensor:
             field=fld, query_range=cfg.query_range, mod_out=column(2),
         )
     return pl.packed(cfg, f_res, f_levels, layer_res, layer_levels, draws, mesh)
+
+
+# The core's graphs (``protocol/graph.py``). A config whose constants leave
+# their cache loses its graphs, which would otherwise keep the constants.
+_GRAPHS = graph.CoreGraphs(_core)
+pr.composition_constants.on_drop.append(lambda cfg, device: _GRAPHS.drop(cfg))
 
 
 def fused_core_batch(cfg: StarkConfig, traces_mont: torch.Tensor, mesh=None) -> dict:

@@ -42,7 +42,7 @@ from zkstark_tpu_torch.field import fp
 from zkstark_tpu_torch.field.fp import resolve_device
 from zkstark_tpu_torch.hash import merkle
 from zkstark_tpu_torch.hash.sha256 import digest_to_bytes
-from zkstark_tpu_torch.ops import composition, constants, elementwise, fri_fold, powers
+from zkstark_tpu_torch.ops import composition, constants, elementwise, fri_fold, powers, tables
 from zkstark_tpu_torch.protocol import air
 from zkstark_tpu_torch.protocol.config import StarkConfig
 from zkstark_tpu_torch.protocol.openings import sparse_openings
@@ -65,11 +65,15 @@ class _ByteBoundedCache:
     bounded by the tensors' bytes and not by their count: after a call, the
     oldest entries go until the rest fit `_CONST_CACHE_BYTES` (read at every
     call) or only the newest is left, which always stays, whatever its size,
-    so that warm proves of one statement never rebuild it."""
+    so that warm proves of one statement never rebuild it. A device table
+    (``ops/tables.py``): inside a capture's recording a miss raises and a hit
+    is recorded. Each function in `on_drop` is called with the (cfg, device)
+    of every entry that leaves, by eviction or `cache_clear`."""
 
     def __init__(self, fn):
         self._fn = fn
         self._entries = {}  # insertion order is recency order
+        self.on_drop = []
         functools.update_wrapper(self, fn)
 
     def __call__(self, cfg, device):
@@ -77,18 +81,25 @@ class _ByteBoundedCache:
         if key in self._entries:
             value = self._entries.pop(key)
         else:
+            tables.require_warm(self.__name__)
             value = self._fn(cfg, device)
         self._entries[key] = value
         while len(self._entries) > 1 and self.cached_bytes() > _CONST_CACHE_BYTES:
-            del self._entries[next(iter(self._entries))]
+            self._drop(next(iter(self._entries)))
             tracing.count("cache.evict")
-        return value
+        return tables.read(value)
 
     def cached_bytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in self._entries.values())
 
     def cache_clear(self) -> None:
-        self._entries.clear()
+        for key in list(self._entries):
+            self._drop(key)
+
+    def _drop(self, key: tuple) -> None:
+        del self._entries[key]
+        for fn in self.on_drop:
+            fn(*key)
 
 
 @_ByteBoundedCache
