@@ -28,9 +28,9 @@ class Control:
     def __init__(self, st, mix: dict, device):
         self.st, self.device = st, device
 
-    def call(self, secrets: list, timings: list | None = None) -> list:
-        return [reference.prove(self.st, s, device=self.device, degree_fix=False)
-                for s in secrets]
+    def call(self, witnesses: list, timings: list | None = None) -> list:
+        return [reference.prove(self.st, w, device=self.device, degree_fix=False)
+                for w in witnesses]
 
     def launch_counts(self) -> dict:
         return {}

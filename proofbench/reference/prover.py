@@ -5,7 +5,8 @@ It follows the protocol of the STARK 101 reference (Crocodoctopus/zkstark,
 src/prover.rs, channel.rs, merkle.rs, proof.rs) generalised to an AIR and a
 query count, and shares no code with the program:
 
-1. the witness rows (``yardstick/statement.py``), their polynomial of degree
+1. the witness rows (``airs/<air>.py``: its rows, constraints, shifts and
+   FRI rounds; the public values are the witness's), their polynomial of degree
    at most n − 2 on the trace group ⟨g⟩ (n = trace_len + 1): the n − 1 rows
    and the one value at g^(n−1) that makes the top coefficient vanish, then
    an inverse NTT; its evaluations on the coset offset·⟨h⟩ of n·blowup
@@ -33,7 +34,7 @@ import struct
 import torch
 
 from proofbench.reference import sha256
-from proofbench.yardstick.statement import SQUARE_CHAIN_C, Statement, trace
+from proofbench.yardstick.statement import Statement, load_air
 
 
 class Field:
@@ -125,39 +126,24 @@ def _path(path: list) -> bytes:
     return struct.pack("<Q", len(path)) + b"".join(path)
 
 
-def constraints(st: Statement):
-    """The AIR's constraints in alpha order and its shifts: ([(kind, data)],
-    shifts), a constraint ("boundary", (step, value)) or ("transition",
-    (numerator, exempt steps)), the numerator taking {shift: f(g^k·x)}."""
-    n, p = st.trace_domain, st.p
-    if st.air == "fibonacci-sq":
-        def num(fld, f):
-            return (f[2] - fld.mul(f[1], f[1]) - fld.mul(f[0], f[0])) % p
-        return [("boundary", (0, st.boundary_first)),
-                ("boundary", (st.trace_len - 1, st.boundary_last)),
-                ("transition", (num, (n - 3, n - 2, n - 1)))], (0, 1, 2)
-    if st.air == "square-chain":
-        def num(fld, f):
-            return (f[1] - fld.mul(f[0], f[0]) - SQUARE_CHAIN_C) % p
-        return [("boundary", (st.trace_len - 1, st.boundary_last)),
-                ("transition", (num, (n - 2, n - 1)))], (0, 1)
-    raise ValueError(f"no reference for the AIR {st.air!r}")
-
-
-def prove(st: Statement, secret: int, device="cpu", degree_fix: bool = True) -> tuple:
-    """(state, data) of the proof of `st` for `secret`. degree_fix=False
-    leaves the top coefficient of the trace polynomial in (the control: a
-    polynomial of degree n − 1, past the statement's degree bound)."""
+def prove(st: Statement, witness: int, device="cpu", degree_fix: bool = True) -> tuple:
+    """(state, data) of the proof of `st` for `witness` (a
+    ``statement.Witness``, or a bare secret proving the statement's own
+    public values). degree_fix=False leaves the top coefficient of the trace
+    polynomial in (the control: a polynomial of degree n − 1, past the
+    statement's degree bound)."""
     fld, p = Field(st.p), st.p
     n, d, b = st.trace_domain, st.eval_domain, st.blowup
     g = pow(st.generator, (p - 1) // n, p)
     h = pow(st.generator, (p - 1) // d, p)
-    cons, shifts = constraints(st)
+    air, publics = load_air(st.air), st.publics(witness)
+    cons, shifts = air.constraints(st, publics)
+    rounds = air.fri_rounds(n)
     ch = Channel()
 
     # 1. witness, trace polynomial, LDE on the coset, commit
-    rows = trace(st.air, st.trace_len, secret, p)
-    if int(rows[-1]) != st.boundary_last:
+    rows = air.trace(st.trace_len, int(witness), p)
+    if int(rows[-1]) != publics["boundary_last"]:
         raise ValueError("the secret's trace misses the public output")
     v = torch.as_tensor(rows.astype("int64"), device=device)
     top = int(fld.mul(v, fld.powers(g, n - 1, device)).sum()) % p
@@ -196,7 +182,7 @@ def prove(st: Statement, secret: int, device="cpu", degree_fix: bool = True) -> 
     inv2 = pow(2, p - 2, p)
     layers = [cp_tree]
     evals = cp
-    for k in range(st.fri_rounds):
+    for k in range(rounds):
         beta = ch.draw() % p
         m = evals.shape[0]
         base, off = pow(h, 1 << k, p), pow(st.coset_offset, 1 << k, p)
@@ -218,7 +204,7 @@ def prove(st: Statement, secret: int, device="cpu", degree_fix: bool = True) -> 
             i = q + k * b
             ch.commit(struct.pack("<I", f_tree.value(i)) + _path(f_tree.path(i)))
         ch.commit(struct.pack("<I", cp_tree.value(q)) + _path(cp_tree.path(q)))
-        for tree in layers[: st.fri_rounds]:
+        for tree in layers[:rounds]:
             m = tree.values.shape[0]
             i0, i1 = q % m, (q + m // 2) % m
             ch.commit(struct.pack("<II", tree.value(i0), tree.value(i1))

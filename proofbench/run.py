@@ -17,10 +17,11 @@ each call started when the last returned, the last call finished. With
 device), the launch counters are read around the window, and a stretch of
 calls after it runs under torch.profiler (``devtrace.py``): the per-layer
 metrics. Then the peak of device memory is read, the program's tensors are
-freed, and the plain reference (``reference/``) proves the run's two
-witnesses again: every proof of the window is compared with it, byte for
-byte. The last stdout line is one JSON object; the numbers compared, each
-beside its limit, are the last lines of stderr and the line's last key.
+freed, and the plain reference (``reference/``) proves each distinct witness
+of the statement's cycle again: every proof of the window is compared with
+its witness's, byte for byte. The last stdout line is one JSON object; the
+numbers compared, each beside its limit, are the last lines of stderr and
+the line's last key.
 
 Without a CUDA device, or with fewer than the cell asks for, it exits 2 and
 prints no result. It exits 3 if JAX or the JAX package was loaded.
@@ -106,13 +107,13 @@ def cell_metrics(bench: dict, cell: str, trace: bool) -> list:
 
 class Traffic:
     """The mix's calls: call c proves the witnesses c, c + 1, …, c + batch − 1
-    of the statement (s for even, p − s for odd), so each call differs from
-    the one before it."""
+    of the statement's cycle (``statement.Witness``: a secret and its public
+    values), so each call differs from the one before it."""
 
     def __init__(self, st, mix: dict):
         self.st, self.batch = st, int(mix["batch"])
 
-    def secrets(self, c: int) -> list:
+    def witnesses(self, c: int) -> list:
         return [self.st.witness(c + i) for i in range(self.batch)]
 
 
@@ -125,7 +126,7 @@ def _sync(device) -> None:
 
 def window(prog, traffic: Traffic, first: int, seconds: float, traced: bool, rec: Run, device):
     """The closed loop: calls until `seconds` have passed, the last one
-    finished. Returns [(secret, state, data)] of every proof returned, and
+    finished. Returns [(witness, state, data)] of every proof returned, and
     the failed proofs' count."""
     out, failed = [], 0
     c = first
@@ -133,18 +134,18 @@ def window(prog, traffic: Traffic, first: int, seconds: float, traced: bool, rec
     _sync(device)
     t0 = now = time.perf_counter()
     while now - t0 < seconds or not rec.calls:
-        secrets = traffic.secrets(c)
+        witnesses = traffic.witnesses(c)
         start = now
         try:
-            proofs = prog.call(secrets, rec.spans if traced else None)
+            proofs = prog.call(witnesses, rec.spans if traced else None)
         except Exception as e:  # a failed call is counted, the loop goes on
             log(f"call {c} failed: {type(e).__name__}: {e}")
             proofs = []
         now = time.perf_counter()
-        got = min(len(proofs), len(secrets))
-        failed += len(secrets) - got
+        got = min(len(proofs), len(witnesses))
+        failed += len(witnesses) - got
         rec.calls.append((start, now, got))
-        out += [(s, st, data) for s, (st, data) in zip(secrets, proofs)]
+        out += [(w, st, data) for w, (st, data) in zip(witnesses, proofs)]
         c += 1
     rec.window_s = now - t0
     rec.proofs = len(out)
@@ -156,13 +157,16 @@ def window(prog, traffic: Traffic, first: int, seconds: float, traced: bool, rec
 
 def check(out: list, failed: int, st, device) -> dict:
     """Every proof of the window against the reference's proof of its
-    secret, byte for byte: the numbers compared, each with its limit."""
+    witness, keyed by (secret, publics), byte for byte: the numbers compared,
+    each with its limit. Each distinct witness of the cycle is proved once."""
     from proofbench.reference import prover as reference
 
     t = time.perf_counter()
-    refs = {s: reference.prove(st, s, device=device) for s in (st.witness(0), st.witness(1))}
-    wrong = sum(1 for s, state, data in out if refs[s] != (state, data))
-    log(f"reference: 2 proofs in {time.perf_counter() - t:.3f} s; {len(out)} proofs compared")
+    distinct = {w.key: w for w in st.cycle}
+    refs = {k: reference.prove(st, w, device=device) for k, w in distinct.items()}
+    wrong = sum(1 for w, state, data in out if refs.get(w.key) != (state, data))
+    log(f"reference: {len(refs)} proofs in {time.perf_counter() - t:.3f} s; "
+        f"{len(out)} proofs compared")
     return {"wrong_proofs": {"value": wrong, "limit": 0},
             "failed_proofs": {"value": failed, "limit": 0}}
 
@@ -189,7 +193,7 @@ def run(bench: dict, name: str, seed: int, seconds: float, trace: bool, device="
     prog = program(st, mix, device) if program else Port(st, mix, device)
     warm = int(mix["warmup_calls"])
     for c in range(warm):
-        prog.call(traffic.secrets(c))
+        prog.call(traffic.witnesses(c))
     _sync(device)
     gc.collect()
     rec.setup_s = time.perf_counter() - t0
@@ -206,7 +210,7 @@ def run(bench: dict, name: str, seed: int, seconds: float, trace: bool, device="
             calls = max(1, min(PROFILE_MAX_CALLS, round(PROFILE_SECONDS / per_call)))
             patterns = [k for names in rec.layers.values() for k in names]
             rec.stretch = devtrace.profile_stretch(
-                prog, traffic.secrets, next_call, calls, patterns, log)
+                prog, traffic.witnesses, next_call, calls, patterns, log)
     del prog
     gc.collect()
     if on_card:
@@ -224,7 +228,7 @@ def run(bench: dict, name: str, seed: int, seconds: float, trace: bool, device="
            "kind": torch.cuda.get_device_name(0) if on_card else "cpu",
            "count": int(cell["chips"]), "memory_peak_bytes": rec.peak_bytes}
     result = {"correct": all(c["value"] <= c["limit"] for c in checks.values()),
-              "attempted": sum(len(traffic.secrets(0)) for _ in rec.calls),
+              "attempted": sum(len(traffic.witnesses(0)) for _ in rec.calls),
               "failed": failed, "metrics": metrics, "device": dev}
     if trace and rec.stretch is not None:
         dev["busy_s"], dev["window_s"] = rec.stretch.busy_s, rec.stretch.window_s

@@ -1,18 +1,24 @@
 """The statements a cell proves, made from `--seed`: the benchmark's own copy
-of each AIR's recurrence, so that no change to the program can move what is
-proved.
+of each AIR, so that no change to the program can move what is proved.
 
 A statement file (``configs/<name>.json``) fixes the AIR, the trace length,
-the blowup, the coset offset, the query count and the field. The seed draws
-one secret s, uniform in [1, p − 1]; the public output `boundary_last` is the
-last row of s's trace. Both AIRs read the secret only through its square, so
-s and p − s are the two witnesses of that output: a run's proofs alternate
-them, and consecutive proofs differ in their trace rows, roots, challenges
-and openings.
+the blowup, the coset offset, the query count and the field. Its `air` names
+a file of the benchmark, ``airs/<air>.py`` (`-` read as `_`), which defines
+
+* ``trace(trace_len, secret, p)``: the witness rows (uint32 residues);
+* ``witnesses(seed, cfg)``: the short cycle of (secret, publics) pairs a run
+  proves in turn, publics being ``{"boundary_first", "boundary_last"}``;
+* ``constraints(st, publics)``: the reference's ([(kind, data)], shifts),
+  in alpha order: ("boundary", (step, value)) or ("transition", (numerator,
+  exempt steps)), the numerator taking the field and {shift: f(g^k·x)};
+* ``fri_rounds(trace_domain)``: the folds down to degree 0.
+
+Adding a statement is adding files: the harness names no AIR.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import random
 from dataclasses import dataclass
@@ -21,46 +27,49 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
-
-SQUARE_CHAIN_C = 1234567891  # the square chain's round constant
-
-
-def _fibonacci_sq(trace_len: int, secret: int, p: int) -> np.ndarray:
-    """a[0] = 1, a[1] = s, a[i] = a[i-2]² + a[i-1]²."""
-    a = np.empty(trace_len, dtype=np.uint32)
-    prev2, prev1 = 1, secret % p
-    a[0] = prev2
-    if trace_len > 1:
-        a[1] = prev1
-    for i in range(2, trace_len):
-        prev2, prev1 = prev1, (prev2 * prev2 + prev1 * prev1) % p
-        a[i] = prev1
-    return a
+AIRS = ROOT / "airs"
 
 
-def _square_chain(trace_len: int, secret: int, p: int) -> np.ndarray:
-    """a[0] = s, a[i] = a[i-1]² + C."""
-    a = np.empty(trace_len, dtype=np.uint32)
-    cur = secret % p
-    a[0] = cur
-    for i in range(1, trace_len):
-        cur = (cur * cur + SQUARE_CHAIN_C) % p
-        a[i] = cur
-    return a
-
-
-TRACES = {"fibonacci-sq": _fibonacci_sq, "square-chain": _square_chain}
+def load_air(name: str):
+    """The module of ``AIRS/<name>.py``, `-` read as `_`."""
+    path = AIRS / f"{name.replace('-', '_')}.py"
+    if not path.is_file():
+        raise ValueError(f"no AIR {name!r}: {path} does not exist")
+    spec = importlib.util.spec_from_file_location(f"proofbench_air_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def trace(air: str, trace_len: int, secret: int, p: int) -> np.ndarray:
     """The witness rows of `air` (uint32 residues)."""
-    return TRACES[air](trace_len, secret, p)
+    return load_air(air).trace(trace_len, secret, p)
+
+
+class Witness(int):
+    """A secret with the public values its proof states: the pair (secret,
+    publics) as one int, so that it goes wherever a secret goes."""
+
+    def __new__(cls, secret: int, publics: dict):
+        w = super().__new__(cls, secret)
+        w.publics = dict(publics)
+        return w
+
+    @property
+    def key(self) -> tuple:
+        """(secret, publics) as a key: two witnesses of one secret and other
+        public values are two proofs."""
+        return int(self), publics_key(self.publics)
+
+
+def publics_key(publics: dict) -> tuple:
+    return tuple(sorted(publics.items()))
 
 
 @dataclass(frozen=True)
 class Statement:
-    """One statement: the file's fields, the public output and the two
-    witnesses the seed gives."""
+    """One statement: the file's fields, the public values and the secret of
+    the first witness, and the cycle of witnesses the seed gives."""
 
     name: str
     air: str
@@ -73,6 +82,7 @@ class Statement:
     boundary_first: int
     boundary_last: int
     secret: int
+    cycle: tuple = ()
 
     @property
     def trace_domain(self) -> int:
@@ -84,11 +94,17 @@ class Statement:
 
     @property
     def fri_rounds(self) -> int:
-        return self.trace_domain.bit_length() - 1
+        return load_air(self.air).fri_rounds(self.trace_domain)
 
-    def witness(self, k: int) -> int:
-        """The secret of a run's proof k: s for even k, p − s for odd."""
-        return self.secret if k % 2 == 0 else self.p - self.secret
+    def witness(self, k: int) -> Witness:
+        """The witness of a run's proof k: the k-th of the cycle, cyclically."""
+        return self.cycle[k % len(self.cycle)]
+
+    def publics(self, witness: int) -> dict:
+        """The public values a proof of `witness` states: a `Witness`'s own,
+        the statement's for a bare secret."""
+        return getattr(witness, "publics", None) or {
+            "boundary_first": self.boundary_first, "boundary_last": self.boundary_last}
 
 
 def load_config(name: str) -> dict:
@@ -103,12 +119,13 @@ def draw_secret(seed: int, p: int) -> int:
 
 def make(name: str, cfg: dict, seed: int) -> Statement:
     """The statement of `cfg` (a statement file's dict) for `seed`."""
-    p = int(cfg["field_p"])
-    s = draw_secret(seed, p)
-    last = int(trace(cfg["air"], int(cfg["trace_len"]), s, p)[-1])
+    cycle = tuple(Witness(s, pub) for s, pub in load_air(cfg["air"]).witnesses(seed, cfg))
+    first = cycle[0]
     return Statement(
         name=name, air=cfg["air"], trace_len=int(cfg["trace_len"]),
         blowup=int(cfg["blowup"]), coset_offset=int(cfg["coset_offset"]),
-        n_queries=int(cfg["n_queries"]), p=p, generator=int(cfg["field_generator"]),
-        boundary_first=int(cfg["boundary_first"]), boundary_last=last, secret=s,
+        n_queries=int(cfg["n_queries"]), p=int(cfg["field_p"]),
+        generator=int(cfg["field_generator"]),
+        boundary_first=first.publics["boundary_first"],
+        boundary_last=first.publics["boundary_last"], secret=int(first), cycle=cycle,
     )
