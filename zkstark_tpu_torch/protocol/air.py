@@ -1,5 +1,5 @@
-"""AIR framework and the three concrete AIRs — counterpart of
-``zkstark_tpu/protocol/air.py``.
+"""AIR framework and the four concrete AIRs — counterpart of
+``zkstark_tpu/protocol/air.py``, which has the first three.
 
 An `Air` generates the witness trace and declares an ordered list of
 constraints, `Boundary(step, value)` and `Transition(numerator, exempt)`. One
@@ -142,10 +142,14 @@ def numerator_program(numerator: Callable, shifts: tuple, p: int = fp.P) -> list
 @dataclass(frozen=True)
 class Air:
     """Witness generation plus an ordered constraint list. `shifts` names
-    the f(g^k·x) openings the constraints read."""
+    the f(g^k·x) openings the constraints read; `degree` is the largest
+    degree of a transition numerator in the trace values, which bounds the
+    composition's degree and so sets the FRI rounds (``config.py``
+    `fri_rounds`)."""
 
     shifts = (0,)
     name = "air"
+    degree = 2
 
     @property
     def max_shift(self) -> int:
@@ -209,6 +213,7 @@ class FibonacciAir(Air):
 
     shifts = (0, 1, 2)
     name = "fibonacci"
+    degree = 1
 
     def trace(self, trace_len: int, secret: int, p: int = fp.P) -> np.ndarray:
         a = np.empty(trace_len, dtype=np.uint32)
@@ -263,11 +268,51 @@ class SquareChainAir(Air):
         )
 
 
+WORK_C = 42  # the round constant of Winterfell's `do_work`
+
+
+def _work_numerator(ops, f, x):
+    """f(gx) − f(x)³ − 42."""
+    cube = ops.mul(ops.mul(f(0), f(0)), f(0))
+    return ops.sub(ops.sub(f(1), cube), ops.const(WORK_C))
+
+
+@dataclass(frozen=True)
+class WinterfellWorkAir(Air):
+    """Winterfell's `do_work` statement (facebook/winterfell README,
+    "Usage", `WorkAir`): a[0] = the public start, a[i] = a[i-1]³ + 42, with
+    public a[0] and a[trace_len−1]. The transition has degree 3, so the
+    composition's degree is about 2n and FRI folds once more than for the
+    quadratic AIRs."""
+
+    shifts = (0, 1)
+    name = "winterfell-work"
+    degree = 3
+
+    def trace(self, trace_len: int, secret: int, p: int = fp.P) -> np.ndarray:
+        a = np.empty(trace_len, dtype=np.uint32)
+        cur = secret % p
+        a[0] = cur
+        for i in range(1, trace_len):
+            cur = (cur * cur % p * cur + WORK_C) % p
+            a[i] = cur
+        return a
+
+    def constraints(self, cfg) -> tuple:
+        n = cfg.trace_domain
+        return (
+            Boundary(0, cfg.boundary_first),
+            Boundary(cfg.trace_len - 1, cfg.boundary_last),
+            Transition(_work_numerator, (n - 2, n - 1)),
+        )
+
+
 FIBONACCI_SQ = FibonacciSqAir()
 FIBONACCI = FibonacciAir()
 SQUARE_CHAIN = SquareChainAir()
+WINTERFELL_WORK = WinterfellWorkAir()
 
-AIRS = {a.name: a for a in (FIBONACCI_SQ, FIBONACCI, SQUARE_CHAIN)}
+AIRS = {a.name: a for a in (FIBONACCI_SQ, FIBONACCI, SQUARE_CHAIN, WINTERFELL_WORK)}
 
 
 def composition_at_point(cfg, x: int, f_vals: dict, alphas: list) -> int:

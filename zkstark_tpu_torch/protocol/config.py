@@ -42,6 +42,12 @@ class StarkConfig:
             raise ValueError("boundary values must be residues mod p")
         if self.n_queries < 1:
             raise ValueError("n_queries must be at least 1")
+        if 1 << self.fri_rounds >= self.eval_domain:
+            raise ValueError(
+                f"a degree-{self.air.degree} AIR's composition has degree under "
+                f"{1 << self.fri_rounds}, not below the evaluation domain of "
+                f"{self.eval_domain} points: blowup {self.blowup} is too small"
+            )
 
     @property
     def trace_domain(self) -> int:
@@ -55,8 +61,12 @@ class StarkConfig:
 
     @property
     def fri_rounds(self) -> int:
-        """Folds until degree 0 (reference: 10, prover.rs:198)."""
-        return self.trace_domain.bit_length() - 1
+        """Folds until degree 0 (reference: 10, prover.rs:198): log2 of the
+        composition's degree bound. A transition numerator of degree k over
+        a trace polynomial of degree n − 2, divided by a vanishing polynomial
+        of degree n − |exempt|, has degree under n·max(1, k − 1), rounded up
+        to a power of two: log2 n for k ≤ 2, log2(2n) for k = 3."""
+        return (self.trace_domain * max(1, self.air.degree - 1) - 1).bit_length()
 
     @property
     def query_range(self) -> int:

@@ -435,8 +435,11 @@ def device_phases(
 
 def decommit(cfg: StarkConfig, channel: Channel, out: dict, queries: list) -> Proof:
     """Phase 4 from the fetched openings, then the final state; commit order
-    is the reference's (prover.rs:256-289), generalised to n_queries."""
+    is the reference's (prover.rs:256-289), generalised to n_queries. Counts
+    the openings serialized (``decommit.openings``, a FRI pair one) and the
+    bytes committed (``decommit.bytes``), once a call."""
     with tracing.span("decommit"):
+        start = len(channel.data)
         for qi in range(len(queries)):
             for si in range(len(cfg.air.shifts)):
                 channel.commit_bytes(
@@ -458,6 +461,9 @@ def decommit(cfg: StarkConfig, channel: Channel, out: dict, queries: list) -> Pr
                         int(v[0]), int(v[1]), _path_bytes(p[0]), _path_bytes(p[1])
                     )
                 )
+        tracing.count("decommit.openings",
+                      len(queries) * (len(cfg.air.shifts) + 1 + cfg.fri_rounds))
+        tracing.count("decommit.bytes", len(channel.data) - start)
         state, data = channel.finalize()
         return Proof(state=state, data=data)
 

@@ -42,9 +42,11 @@ The spans of the prove path, per call unless said (a stark-101 proof):
 
 and the counters ``cache.miss.<cache>`` and ``cache.evict``, and
 ``graph.eager``, ``graph.capture``, ``graph.replay`` (one of the three a call
-of the fused core) and ``graph.evict`` (``protocol/graph.py``). A replayed
-core opens no `lde`, `merkle`, `chain` or `fold` span: they time the enqueue
-of eager and capturing calls. `prove` also
+of the fused core) and ``graph.evict`` (``protocol/graph.py``), and
+``decommit.openings`` and ``decommit.bytes`` (the openings a `decommit`
+serialized, a FRI pair one, and the bytes it committed; one count of each a
+call). A replayed core opens no `lde`, `merkle`, `chain` or `fold` span:
+they time the enqueue of eager and capturing calls. `prove` also
 has `fetch` (the wait and the unpacking), and with `timings` a `sync` span
 for each wait for the device it makes; `prove(fused=False)` has the spans
 `phase1_lde_commit`, `phase2_composition`, `phase3_fri` and
