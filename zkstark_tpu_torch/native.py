@@ -12,13 +12,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
-from zkstark_tpu_torch.ops._build import BUILD_DIR
+from zkstark_tpu_torch.ops._build import gxx
 
 SRC = Path(__file__).resolve().parents[1] / "native" / "zkstark_native.cpp"
 
@@ -26,20 +22,7 @@ SRC = Path(__file__).resolve().parents[1] / "native" / "zkstark_native.cpp"
 @functools.lru_cache(maxsize=1)
 def native() -> ctypes.CDLL:
     """The loaded C++ library, built first if needed."""
-    src = SRC.read_bytes()
-    so = BUILD_DIR / f"libzkstark_native_{hashlib.sha256(src).hexdigest()[:16]}.so"
-    if not so.exists():
-        cxx = os.environ.get("CXX") or shutil.which("g++")
-        if not cxx:
-            raise RuntimeError("no C++ compiler (g++) to build the native verifier")
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [cxx, "-O3", "-std=c++17", "-fPIC", "-shared", "-o", str(tmp), str(SRC)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"native build failed:\n{res.stdout}{res.stderr}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib = ctypes.CDLL(str(gxx(SRC, "libzkstark_native")))
     lib.zk_verify.argtypes = [
         ctypes.c_char_p,  # final state (32)
         ctypes.c_char_p,  # transcript

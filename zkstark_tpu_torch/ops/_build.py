@@ -1,4 +1,4 @@
-"""Build and load the CUDA kernels of ``csrc/``.
+"""Build and load the CUDA kernels of ``csrc/``, and the host C++ (`gxx`).
 
 At first use, ``nvcc`` compiles every ``csrc/*.cu`` for Hopper (sm_90a), one
 process per source, all started together, and links the objects into one
@@ -185,6 +185,27 @@ def kernels() -> ctypes.CDLL:
         lib.zk_cuda_error_string.argtypes = [ctypes.c_int]
         lib.zk_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def gxx(src: Path, stem: str) -> Path:
+    """The shared library ``g++ -O3 -fPIC -shared`` builds from the C++ file
+    `src`, `<stem>_<hash of the source>.so` in `BUILD_DIR`, built first if
+    it is not there. A missing compiler or a failed build raises."""
+    code = src.read_bytes()
+    so = BUILD_DIR / f"{stem}_{hashlib.sha256(code).hexdigest()[:16]}.so"
+    if so.exists():
+        return so
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if not cxx:
+        raise RuntimeError(f"no C++ compiler (g++) to build {src.name}")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [cxx, "-O3", "-std=c++17", "-fPIC", "-shared", "-o", str(tmp), str(src)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"g++ failed for {src.name}:\n{res.stdout}{res.stderr}")
+    os.replace(tmp, so)
+    return so
 
 
 def check(rc: int, what: str) -> None:

@@ -26,6 +26,7 @@ from zkstark_tpu_torch import ntt
 from zkstark_tpu_torch.field import fp
 from zkstark_tpu_torch.field.fp import FIELD101, Field
 from zkstark_tpu_torch.ops import elementwise
+from zkstark_tpu_torch.protocol import witness
 
 
 @dataclass(frozen=True)
@@ -145,18 +146,23 @@ class Air:
     the f(g^k·x) openings the constraints read; `degree` is the largest
     degree of a transition numerator in the trace values, which bounds the
     composition's degree and so sets the FRI rounds (``config.py``
-    `fri_rounds`)."""
+    `fri_rounds`). `recurrence` names the witness's loop in
+    ``csrc/witness.cpp`` (``protocol/witness.py``), `constant` its round
+    constant; None: the AIR has no witness."""
 
     shifts = (0,)
     name = "air"
     degree = 2
+    recurrence = None
+    constant = 0
 
     @property
     def max_shift(self) -> int:
         return max(self.shifts)
 
     def trace(self, trace_len: int, secret: int, p: int = fp.P) -> np.ndarray:
-        raise NotImplementedError
+        """The witness from `secret`: trace_len canonical uint32 residues."""
+        return witness.traces(self, [secret], trace_len, fp.field_for(p), mont=False)[0][0]
 
     def constraints(self, cfg) -> tuple:
         raise NotImplementedError
@@ -166,16 +172,7 @@ def fibonacci_sq_trace(
     length: int = 1023, secret: int = 3141592, p: int = fp.P
 ) -> np.ndarray:
     """a[0]=1, a[1]=secret, a[i]=a[i-2]²+a[i-1]² over F_p (prover.rs:32-39)."""
-    a = np.empty(length, dtype=np.uint32)
-    prev2, prev1 = 1, secret % p
-    a[0] = prev2
-    if length > 1:
-        a[1] = prev1
-    for i in range(2, length):
-        cur = (prev2 * prev2 + prev1 * prev1) % p
-        a[i] = cur
-        prev2, prev1 = prev1, cur
-    return a
+    return FIBONACCI_SQ.trace(length, secret, p)
 
 
 def _fib_sq_numerator(ops, f, x):
@@ -190,9 +187,7 @@ class FibonacciSqAir(Air):
 
     shifts = (0, 1, 2)
     name = "fibonacci-sq"
-
-    def trace(self, trace_len: int, secret: int, p: int = fp.P) -> np.ndarray:
-        return fibonacci_sq_trace(trace_len, secret, p)
+    recurrence = witness.FIBONACCI_SQ
 
     def constraints(self, cfg) -> tuple:
         n = cfg.trace_domain
@@ -214,18 +209,7 @@ class FibonacciAir(Air):
     shifts = (0, 1, 2)
     name = "fibonacci"
     degree = 1
-
-    def trace(self, trace_len: int, secret: int, p: int = fp.P) -> np.ndarray:
-        a = np.empty(trace_len, dtype=np.uint32)
-        prev2, prev1 = 1, secret % p
-        a[0] = prev2
-        if trace_len > 1:
-            a[1] = prev1
-        for i in range(2, trace_len):
-            cur = (prev2 + prev1) % p
-            a[i] = cur
-            prev2, prev1 = prev1, cur
-        return a
+    recurrence = witness.FIBONACCI
 
     def constraints(self, cfg) -> tuple:
         n = cfg.trace_domain
@@ -250,15 +234,8 @@ class SquareChainAir(Air):
 
     shifts = (0, 1)
     name = "square-chain"
-
-    def trace(self, trace_len: int, secret: int, p: int = fp.P) -> np.ndarray:
-        a = np.empty(trace_len, dtype=np.uint32)
-        cur = secret % p
-        a[0] = cur
-        for i in range(1, trace_len):
-            cur = (cur * cur + SQUARE_CHAIN_C) % p
-            a[i] = cur
-        return a
+    recurrence = witness.SQUARE_CHAIN
+    constant = SQUARE_CHAIN_C
 
     def constraints(self, cfg) -> tuple:
         n = cfg.trace_domain
@@ -288,15 +265,8 @@ class WinterfellWorkAir(Air):
     shifts = (0, 1)
     name = "winterfell-work"
     degree = 3
-
-    def trace(self, trace_len: int, secret: int, p: int = fp.P) -> np.ndarray:
-        a = np.empty(trace_len, dtype=np.uint32)
-        cur = secret % p
-        a[0] = cur
-        for i in range(1, trace_len):
-            cur = (cur * cur % p * cur + WORK_C) % p
-            a[i] = cur
-        return a
+    recurrence = witness.WORK
+    constant = WORK_C
 
     def constraints(self, cfg) -> tuple:
         n = cfg.trace_domain
@@ -313,6 +283,64 @@ SQUARE_CHAIN = SquareChainAir()
 WINTERFELL_WORK = WinterfellWorkAir()
 
 AIRS = {a.name: a for a in (FIBONACCI_SQ, FIBONACCI, SQUARE_CHAIN, WINTERFELL_WORK)}
+
+
+# The Python twins of the compiled witness loops (``csrc/witness.cpp``):
+# the tests' reference, never on a prove path.
+
+
+def _fibonacci_sq_trace_plain(length: int, secret: int, p: int) -> np.ndarray:
+    a = np.empty(length, dtype=np.uint32)
+    prev2, prev1 = 1, secret % p
+    a[0] = prev2
+    if length > 1:
+        a[1] = prev1
+    for i in range(2, length):
+        cur = (prev2 * prev2 + prev1 * prev1) % p
+        a[i] = cur
+        prev2, prev1 = prev1, cur
+    return a
+
+
+def _fibonacci_trace_plain(length: int, secret: int, p: int) -> np.ndarray:
+    a = np.empty(length, dtype=np.uint32)
+    prev2, prev1 = 1, secret % p
+    a[0] = prev2
+    if length > 1:
+        a[1] = prev1
+    for i in range(2, length):
+        cur = (prev2 + prev1) % p
+        a[i] = cur
+        prev2, prev1 = prev1, cur
+    return a
+
+
+def _square_chain_trace_plain(length: int, secret: int, p: int) -> np.ndarray:
+    a = np.empty(length, dtype=np.uint32)
+    cur = secret % p
+    a[0] = cur
+    for i in range(1, length):
+        cur = (cur * cur + SQUARE_CHAIN_C) % p
+        a[i] = cur
+    return a
+
+
+def _work_trace_plain(length: int, secret: int, p: int) -> np.ndarray:
+    a = np.empty(length, dtype=np.uint32)
+    cur = secret % p
+    a[0] = cur
+    for i in range(1, length):
+        cur = (cur * cur % p * cur + WORK_C) % p
+        a[i] = cur
+    return a
+
+
+_PLAIN_TRACES = {
+    FIBONACCI_SQ.name: _fibonacci_sq_trace_plain,
+    FIBONACCI.name: _fibonacci_trace_plain,
+    SQUARE_CHAIN.name: _square_chain_trace_plain,
+    WINTERFELL_WORK.name: _work_trace_plain,
+}
 
 
 def composition_at_point(cfg, x: int, f_vals: dict, alphas: list) -> int:

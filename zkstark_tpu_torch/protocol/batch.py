@@ -31,21 +31,22 @@ from zkstark_tpu_torch.protocol.proof import Proof
 __all__ = ["fused_core_batch", "prove_batch", "prove_batch_pipelined"]
 
 
-def _witnesses(cfg: StarkConfig, secrets, offset: int = 0) -> np.ndarray:
-    """(B, trace_len) Montgomery witnesses (host), each checked against the
-    public boundary."""
+def _witnesses(cfg: StarkConfig, secrets, device: torch.device, offset: int = 0) -> torch.Tensor:
+    """(B, trace_len) Montgomery witnesses in host memory that `upload` sends
+    to `device` (``prover.witness_words``), each checked against the public
+    boundary."""
     with tracing.span("witness"):
-        traces = np.stack([cfg.air.trace(cfg.trace_len, s, cfg.field.p) for s in secrets])
+        words, last = pr.witness_words(cfg, secrets, device)
         for i, s in enumerate(secrets):
-            if int(traces[i, -1]) != cfg.boundary_last:
+            if int(last[i]) != cfg.boundary_last:
                 raise ValueError(f"witness {offset + i} (secret {s}) fails the public boundary")
-        return cfg.field.host_to_mont(traces)
+        return words
 
 
 def _dispatch_batch(cfg: StarkConfig, secrets, device: torch.device) -> fused.PendingFetch:
     """Witness check, upload, and one fused batch enqueued; does not wait for
     the device."""
-    traces_mont = pr.upload(_witnesses(cfg, secrets), device)
+    traces_mont = pr.upload(_witnesses(cfg, secrets, device), device)
     return fused.PendingFetch(fused.fused_core_batch_packed(cfg, traces_mont))
 
 
@@ -103,7 +104,7 @@ def _prove_batch_mesh(cfg: StarkConfig, secrets: list, mesh, data_axis) -> list[
         part = torch.zeros((groups, size), dtype=torch.int32, device=mesh.device)
         if g is not None:
             chunk = secrets[g * per : (g + 1) * per]
-            traces = _witnesses(cfg, chunk, offset=g * per)
+            traces = _witnesses(cfg, chunk, mesh.device, offset=g * per)
             flat = fused.fused_core_batch_packed(cfg, pr.upload(traces, mesh.device))
             part[g].copy_(fp.as_i32(flat))
         parts.append(part)

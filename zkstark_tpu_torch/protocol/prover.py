@@ -43,7 +43,7 @@ from zkstark_tpu_torch.field.fp import resolve_device
 from zkstark_tpu_torch.hash import merkle
 from zkstark_tpu_torch.hash.sha256 import digest_to_bytes
 from zkstark_tpu_torch.ops import composition, constants, elementwise, fri_fold, powers, tables
-from zkstark_tpu_torch.protocol import air
+from zkstark_tpu_torch.protocol import air, witness
 from zkstark_tpu_torch.protocol.config import StarkConfig
 from zkstark_tpu_torch.protocol.openings import sparse_openings
 from zkstark_tpu_torch.protocol.proof import Proof
@@ -326,32 +326,45 @@ class DeviceChannelMismatch(RuntimeError):
     """The device-derived Fiat-Shamir chain disagreed with the host replay."""
 
 
-def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """uint32 host array → device tensor without waiting for the device: on
-    a card the words are staged in pinned memory and copied asynchronously on
-    the current stream (a copy from pageable memory would first wait for
-    every kernel already enqueued, which is what pipelined proving must not
-    do)."""
+def upload(arr, device: torch.device) -> torch.Tensor:
+    """uint32 host words → device tensor without waiting for the device: on
+    a card the words are sent from pinned memory, asynchronously on the
+    current stream (a copy from pageable memory would first wait for every
+    kernel already enqueued, which is what pipelined proving must not do).
+    `arr`: a numpy array, staged in pinned memory first, or the int32 host
+    tensor of `witness_words`, already pinned on a card and sent as it is."""
     with tracing.span("upload"):
+        if isinstance(arr, np.ndarray):
+            arr = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.uint32).view(np.int32))
         if device.type != "cuda":
-            return fp.from_host(arr, device)
-        staged = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.uint32).view(np.int32))
-        return fp.as_u32(staged.pin_memory().to(device, non_blocking=True))
+            return fp.as_u32(arr.to(device))
+        return fp.as_u32(arr.pin_memory().to(device, non_blocking=True))
+
+
+def witness_words(cfg: StarkConfig, secrets, device: torch.device):
+    """(words, last) of the witnesses of `secrets` (``protocol/witness.py``):
+    words, their (B, trace_len) Montgomery words in an int32 host tensor
+    that `upload` sends to `device` (pinned on a card); last, each trace's
+    last value (canonical)."""
+    words = torch.empty((len(secrets), cfg.trace_len), dtype=torch.int32,
+                        pin_memory=device.type == "cuda")
+    _, last = witness.traces(cfg.air, secrets, cfg.trace_len, cfg.field,
+                             out=words.numpy().view(np.uint32))
+    return words, last
 
 
 def trace_to_device(cfg: StarkConfig, secret: int, device) -> torch.Tensor:
     """The witness (host) in Montgomery form on `device`; raises ValueError
     if it does not meet the public boundary."""
-    fld = cfg.field
+    dev = torch.device(device)
     with tracing.span("witness"):
-        trace = cfg.air.trace(cfg.trace_len, secret, fld.p)
-        if int(trace[-1]) != cfg.boundary_last:
+        words, last = witness_words(cfg, [secret], dev)
+        if int(last[0]) != cfg.boundary_last:
             raise ValueError(
                 "witness does not satisfy the public boundary: trace endpoint "
-                f"{int(trace[-1])} != {cfg.boundary_last}"
+                f"{int(last[0])} != {cfg.boundary_last}"
             )
-        mont = fld.host_to_mont(trace)
-    return upload(mont, torch.device(device))
+    return upload(words[0], dev)
 
 
 def phase1(cfg: StarkConfig, channel: Channel, trace_mont: torch.Tensor):

@@ -27,7 +27,8 @@ that encloses launches is also echoed on the profiler's device timeline.
 The spans of the prove path, per call unless said (a stark-101 proof):
 
   prove, prove_batch, prove_pipelined, prove_batch_pipelined   the roots
-  witness    the AIR's trace, the boundary check and the Montgomery form
+  witness    the AIR's trace in Montgomery form (one compiled loop,
+             ``protocol/witness.py``) and the boundary check
   upload     the witness's copy to the device
   enqueue    the fused core (``protocol/fused.py``), launches only
   lde        the interpolation and the coset LDE inside the core
@@ -45,7 +46,8 @@ and the counters ``cache.miss.<cache>`` and ``cache.evict``, and
 of the fused core) and ``graph.evict`` (``protocol/graph.py``), and
 ``decommit.openings`` and ``decommit.bytes`` (the openings a `decommit`
 serialized, a FRI pair one, and the bytes it committed; one count of each a
-call). A replayed core opens no `lde`, `merkle`, `chain` or `fold` span:
+call), and ``witness.rows`` (the rows a call of the compiled witness loop
+wrote: trace_len × the witnesses; `Air.trace` calls count too). A replayed core opens no `lde`, `merkle`, `chain` or `fold` span:
 they time the enqueue of eager and capturing calls. `prove` also
 has `fetch` (the wait and the unpacking), and with `timings` a `sync` span
 for each wait for the device it makes; `prove(fused=False)` has the spans
