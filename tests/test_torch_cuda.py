@@ -16,9 +16,14 @@ point and ragged chain counts, the FRI fold at every layer size from 2 words
 up and ragged proof counts, the fused, batched and pipelined provers against
 the host-synced one, the limb-matrix row transform at every row length
 128..16384 with each fused option and the four-step on its route, the
-composition kernel for the three AIRs and a program that reads x, and the
-wrappers' input checks.
+composition kernel for the three AIRs and a program that reads x, the
+wrappers' input checks, and `fp.cuh`'s arithmetic against exact integers.
+`test_kernels_at_main_path_shapes` holds the kernels to their twins at the
+calls the prove path makes, up to the 2^27-point LDE. Whole proofs are
+`test_torch_cuda_proofs.py`'s.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -34,6 +39,10 @@ from zkstark_tpu_torch.ops import (
     ntt_kernel,
     sha256_kernel,
 )
+from zkstark_tpu_torch.protocol import STARK101
+from zkstark_tpu_torch.protocol import prover as pr
+from zkstark_tpu_torch.protocol.air import AIRS
+from zkstark_tpu_torch.protocol.config import StarkConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -380,9 +389,6 @@ def test_fri_fold_unaligned_view(dev):
 
 
 def _small_cfg(trace_len=63, air_name="fibonacci-sq", secret=3141592, n_queries=1):
-    from zkstark_tpu_torch.protocol.air import AIRS
-    from zkstark_tpu_torch.protocol.config import StarkConfig
-
     air = AIRS[air_name]
     trace = air.trace(trace_len, secret)
     return StarkConfig(trace_len=trace_len, boundary_last=int(trace[-1]), air=air,
@@ -394,7 +400,6 @@ def test_fused_prove_on_card_equals_host_synced(dev, trace_len, n_queries):
     """The one-fetch path on the card gives the bytes of the host-synced path
     there and on the CPU; its core makes no call that waits once warm."""
     from zkstark_tpu_torch.protocol import fused, prove, verify
-    from zkstark_tpu_torch.protocol import prover as pr
 
     cfg = _small_cfg(trace_len, n_queries=n_queries)
     want = prove(cfg, device="cpu", fused=False)
@@ -628,9 +633,6 @@ def test_fourstep_limb_route_on_card(dev, monkeypatch, log_n):
 
 
 def _composition_case(field, air_name, blowup, bsz, seed, dev):
-    from zkstark_tpu_torch.protocol.air import AIRS
-    from zkstark_tpu_torch.protocol.config import StarkConfig
-
     cfg = StarkConfig(field=field, air=AIRS[air_name], trace_len=1023, blowup=blowup,
                       boundary_first=1, boundary_last=1,
                       coset_offset=5 if field is fp.FIELD101 else 31)
@@ -647,7 +649,6 @@ def test_composition_kernel(dev, field, air_name, blowup, bsz):
     """One launch a batch; both outputs equal the AIR's own closures
     (`composition_eval_plain`) and the program's plain interpreter. Blowup 2
     takes the kernel's one-point-a-thread instance."""
-    from zkstark_tpu_torch.protocol import prover as pr
 
     cfg, f, alphas = _composition_case(field, air_name, blowup, bsz, blowup + bsz, dev)
     before = composition.composition_launches
@@ -670,7 +671,6 @@ def test_composition_kernel(dev, field, air_name, blowup, bsz):
 def test_composition_kernel_reads_x_and_unaligned_views(dev):
     """A program with OP_X and OP_CONST against the plain interpreter, and an
     evaluation vector that does not start on 16 bytes."""
-    from zkstark_tpu_torch.protocol import prover as pr
 
     field = fp.FIELD101
     cfg, f, alphas = _composition_case(field, "square-chain", 8, 2, 3, dev)
@@ -732,7 +732,6 @@ def test_new_wrappers_reject_bad_input(dev):
         limb_dft.limb_dft_rows(fp.from_host(_u32((4, 128), 2), dev).t(), 1)
     with pytest.raises(ValueError, match="2\\^28"):
         ntt_kernel.ntt_fourstep(fp.from_host(_u32(8, 1), dev), 1 << 29, 1)
-    from zkstark_tpu_torch.protocol import prover as pr
 
     cfg, f, alphas = _composition_case(fp.FIELD101, "square-chain", 8, 1, 3, dev)
     inv, prog = pr.composition_constants(cfg, f.device), pr.composition_program(cfg)
@@ -822,7 +821,6 @@ def test_transpose_blocks(dev, rows, cols, elem, missing):
 def test_composition_kernel_on_a_shard(dev, air_name, shards):
     """One shard's block with its start and the next shard's halo: equal to
     the plain twin and to the slice of the whole domain's launch."""
-    from zkstark_tpu_torch.protocol import prover as pr
 
     field = fp.FIELD101
     cfg, f, alphas = _composition_case(field, air_name, 8, 1, 41, dev)
@@ -894,9 +892,6 @@ def test_interpolate_trace_on_card_equals_cpu(dev, field, log_trace):
 @pytest.mark.parametrize("blowup,trace_len", [(4, 63), (8, 1023), (16, 255), (8, (1 << 17) - 1)])
 def test_constants_kernel(dev, air_name, field, blowup, trace_len):
     from zkstark_tpu_torch.ops import constants
-    from zkstark_tpu_torch.protocol import prover as pr
-    from zkstark_tpu_torch.protocol.air import AIRS
-    from zkstark_tpu_torch.protocol.config import StarkConfig
 
     cfg = StarkConfig(field=field, air=AIRS[air_name], trace_len=trace_len, blowup=blowup,
                       boundary_first=1, boundary_last=1, coset_offset=5 if field is fp.FIELD101 else 31)
@@ -914,7 +909,6 @@ def test_openings_kernel(dev, q, bsz):
     from zkstark_tpu_torch.ops import openings as open_op
     from zkstark_tpu_torch.parallel.merkle_sharded import shard_tree
     from zkstark_tpu_torch.protocol import openings
-    from zkstark_tpu_torch.protocol.config import StarkConfig
 
     cfg = StarkConfig(trace_len=1023, boundary_first=1, boundary_last=1, n_queries=q)
     lead = (bsz,) if bsz else ()
@@ -966,7 +960,6 @@ def test_fused_core_packed_on_card(dev):
     """The one vector the openings kernel writes for a fused stark-101 prove
     (B = 1 and a batch of 3) is the CPU's, word for word."""
     from zkstark_tpu_torch.protocol import STARK101, STARK101_SECRET, fused
-    from zkstark_tpu_torch.protocol import prover as pr
 
     trace = pr.trace_to_device(STARK101, STARK101_SECRET, dev)
     _eq(fused.fused_core_packed(STARK101, trace), fused.fused_core_packed(STARK101, trace.cpu()))
@@ -1027,23 +1020,325 @@ def test_powers_kernel(dev, n, field):
     _eq(field.device_powers(base, n), field.device_powers(base, n, device="cpu"))
 
 
-def test_bench_twin_quick_on_card(dev, capsys):
-    """`tools.bench --quick` on the card: a warming line first, the last line
-    the final headline (the golden proof length is checked inside), with the
-    card's name and power limit; the defaulted device and the two defaults
-    repaired to the card."""
-    import json
+@FIELDS
+def test_fp_check_against_exact_integers(dev, field):
+    """`fp.cuh`'s mul, add, sub and reduce through `csrc/check.cu`'s
+    `fp_check` kernel, on the edge values next to p and 2^16 random pairs:
+    bit for bit with the plain-torch ops on every u32 pair, and the exact
+    field values where both words are reduced."""
+    from zkstark_tpu_torch.ops import _build
 
-    from zkstark_tpu_torch.tools import bench
+    p, rng = field.p, np.random.default_rng(2)
+    edges = np.array([0, 1, p - 2, p - 1, 1 << 31, (1 << 32) - 1], dtype=np.uint64)
+    ea, eb = np.meshgrid(edges, edges)
+    a = np.concatenate([ea.ravel(), rng.integers(0, 1 << 32, 1 << 16, dtype=np.uint64)])
+    b = np.concatenate([eb.ravel(), rng.integers(0, 1 << 32, 1 << 16, dtype=np.uint64)])
+    a, b = a.astype(np.uint32), b.astype(np.uint32)
+    n = a.shape[0]
+    da, db = fp.from_host(a, dev), fp.from_host(b, dev)
+    out = torch.empty((6, n), dtype=torch.uint32, device=dev)
+    _build.check(_build.kernels().zk_fp_check(da.data_ptr(), db.data_ptr(), out.data_ptr(), n, p,
+                                              field.p_inv_neg, _build.stream(da)), "fp_check")
+    got = fp.to_host(out)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    plain = [fp.mont_mul_f(field, ta, tb), fp.add_f(field, ta, tb), fp.sub_f(field, ta, tb),
+             fp.from_mont_f(field, ta)]
+    for row, want in enumerate(plain):
+        np.testing.assert_array_equal(got[row], want.numpy(), err_msg=f"row {row}")
+    # rows: mont_mul, add, sub, from_mont, and the reduced-input mont_mul, add
+    r_inv = pow(1 << 32, p - 2, p)
+    x, y = a.astype(object), b.astype(object)
+    reduced = (a < p) & (b < p)
+    exact = [x * y * r_inv % p, (x + y) % p, (x - y) % p, x * r_inv % p, x * y * r_inv % p,
+             (x + y) % p]
+    for row, want in enumerate(exact):
+        assert (got[row][reduced].astype(object) == want[reduced]).all(), f"row {row}"
+
+
+@FIELDS
+def test_field_methods_on_card_equal_cpu(dev, field):
+    rng = np.random.default_rng(17)
+    a, b = (field.host_to_mont(rng.integers(0, field.p, 1 << 16, dtype=np.uint64)) for _ in range(2))
+
+    def methods(device):
+        ta, tb = fp.from_host(a, device), fp.from_host(b, device)
+        return [field.mont_mul(ta, tb), field.add(ta, tb), field.sub(ta, tb), field.neg(ta),
+                field.to_mont(ta), field.from_mont(ta), field.pow_static(ta, 5), field.inv(ta)]
+
+    for got, want in zip(methods(dev), methods("cpu")):
+        assert got.device.type == "cuda"
+        _eq(got, want)
+
+
+def test_defaults_are_the_card(dev):
+    """The entry points whose device defaults to the card."""
     from zkstark_tpu_torch.transcript import device_channel
 
-    assert bench.main(["--quick", "--repeats", "2"]) == 0
-    records = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
-    last = records[-1]
-    assert records[0]["status"] == "warming"
-    assert last["metric"] == "stark101_prove_latency" and last["value"] > 0
-    assert "provisional" not in last and "skipped" not in last and "reduced" not in last
-    assert last["device"] == torch.cuda.get_device_name(dev) and last["power_limit"].endswith(" W")
-    assert last["stark101_prove_pipelined_latency"] > 0 and last["verify_seconds"] > 0
     assert device_channel.zero_state((2,)).device.type == "cuda"
     assert fp.powers_iota_f(fp.FIELD101, 3, 8).device.type == "cuda"
+
+
+
+
+# The kernels at the main path's own shapes: each case yields (label, a
+# kernel's output, its plain twin's) at the calls the prove path makes, from
+# stark-101 to the 2^27-point LDE, both NTT routes, batches, shard 3 of 8.
+
+F101, GEO = fp.FIELD101, ntt_kernel.GeoScale
+INV5 = pow(5, F101.p - 2, F101.p)
+BIG = StarkConfig(trace_len=(1 << 21) - 1, boundary_last=1, air=AIRS["square-chain"])  # 2^24
+NTT = (ntt_kernel.ntt_rows, ntt_kernel.ntt_rows_plain)
+PEASE = (ntt_kernel.ntt_rows_pease, ntt_kernel.ntt_rows_pease_plain)
+LIMB = (limb_dft.limb_dft_rows, limb_dft.limb_dft_rows_plain)
+TRANSPOSE = (ntt_kernel.transpose, ntt_kernel.transpose_plain)
+
+
+def _twin(kernel, plain, *args, **kw):
+    shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
+    return f"{kernel.__name__} {shapes} {sorted(kw)}", kernel(*args, **kw), plain(*args, **kw)
+
+
+def _same(label, got, want):
+    """Tolerance 0, compared on the card: the outputs reach 2^27 words."""
+    if isinstance(got, (tuple, list)):
+        assert len(got) == len(want), label
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same(f"{label} output {i}", g, w)
+    elif got is None or want is None:
+        assert got is None and want is None, f"{label}: an output is missing on one side"
+    else:
+        assert got.shape == want.shape, (label, got.shape, want.shape)
+        differ = int((fp.as_i32(got) != fp.as_i32(want)).sum())
+        assert differ == 0, f"{label}: {differ} of {got.numel()} words differ from the twin"
+
+
+def _passes(kernel, plain, log_n, dev, bsz=1, **kw):
+    """Both passes of `bsz` LDEs of 2^log_n points as the four-step launches
+    them: pass 1 on the coefficient prefix with the coset pre-scale and the
+    U·V twiddle, pass 2 with a coset INTT's post-scale."""
+    n, brev = 1 << log_n, kw.get("bitrev", False)
+    w = ntt_core.forward_plan(n).root
+    n1, n2, ut, vt = ntt_kernel._device_uv(n, w, None, F101, torch.device("cuda", 0), brev)
+    x = _rand_mont(F101, (bsz * n2, n1 // 8), log_n, dev)
+    yield _twin(kernel, plain, x, pow(w, n2, F101.p), F101, m=n1, uv=(ut, vt),
+                pre=GEO(5, n, col_stride=n2, row_stride=1), **kw, **({"period": n2} if bsz > 1 else {}))
+    x = _rand_mont(F101, (bsz * n1, n2), log_n + 1, dev)
+    yield _twin(kernel, plain, x, pow(w, n1, F101.p), F101, **kw, **({"period": n1} if bsz > 1 else {}),
+                post=GEO(INV5, n, col_stride=n1, row_stride=1))
+
+
+def _hashes(dev):
+    vals, kids = fp.from_host(_u32(1 << 20, 3), dev), fp.from_host(_u32((1 << 20, 8), 4), dev)
+    yield _twin(sha256_kernel.leaf_hash, sha256_kernel.leaf_hash_plain, vals)
+    yield _twin(sha256_kernel.node_hash_pairs, sha256_kernel.node_hash_pairs_plain, kids)
+
+
+def _rows(dev):
+    # (batch, m) of the stark-101 INTT and LDE, the 2^21 and 2^22 INTTs, the
+    # 2^24 and 2^25 LDEs; the Pease kernel bit-reversed out, its TPU function
+    for batch, m in ((1, 1024), (1, 8192), (1024, 2048), (2048, 1024), (2048, 2048),
+                     (4096, 4096), (4096, 8192), (8192, 4096)):
+        x, w = _rand_mont(F101, (batch, m), m + batch, dev), ntt_core.forward_plan(m).root
+        yield _twin(*NTT, x, w)
+        if batch >= 2048 and m >= 2048:
+            label, got, want = _twin(*PEASE, x, w, bitrev=False)
+            yield label, got, want
+            yield f"{label} == ntt_rows", got, ntt_kernel.ntt_rows(x, w)
+            yield _twin(*PEASE, x, w, bitrev=True)
+    # the stark-101 LDE (pre-scale) and INTT (1/n), the 2^22 INTT (1/n in U)
+    x, plan = _rand_mont(F101, (1, 1024), 13, dev), ntt_core.inverse_plan(1024)
+    yield _twin(*NTT, x, ntt_core.forward_plan(8192).root, F101, m=8192, pre=GEO(5, 8192))
+    yield _twin(*NTT, x, ntt_core._effective_root(plan), F101, scale=plan.scale_mont)
+    plan = ntt_core.inverse_plan(1 << 22)
+    w = ntt_core._effective_root(plan)
+    _, _, ut, vt = ntt_kernel._device_uv(1 << 22, w, plan.scale_mont, F101, torch.device("cuda", 0))
+    yield _twin(*NTT, _rand_mont(F101, (2048, 2048), 22, dev), pow(w, 2048, F101.p), F101, uv=(ut, vt))
+
+
+def _lde_passes(dev):
+    # the 2^24 and 2^25 LDEs on both routes (Pease in both orders), the 2^27
+    # LDE on the limb route, 16 LDEs of 2^20 on each row kernel (`period=`)
+    for log_n in (24, 25):
+        yield from _passes(*NTT, log_n, dev)
+        yield from _passes(*PEASE, log_n, dev, bitrev=True)
+        yield from _passes(*PEASE, log_n, dev, bitrev=False)
+    yield from _passes(*LIMB, 27, dev)
+    for kernels, kw in ((NTT, {}), (PEASE, {"bitrev": True}), (LIMB, {})):
+        yield from _passes(*kernels, 20, dev, bsz=16, **kw)
+
+
+def _limb(dev):
+    # the 2^27 LDE's rows and 4096^2, both primes, equal to `ntt_rows` where
+    # it takes the rows
+    for field in (F101, fp.FIELD_ALT):
+        for batch, m in ((8192, 16384), (16384, 8192), (4096, 4096)):
+            x, w = _rand_mont(field, (batch, m), m, dev), ntt_core.forward_plan(m, field).root
+            label, got, want = _twin(*LIMB, x, w, field)
+            yield label, got, want
+            if m <= ntt_kernel.MAX_ROW:
+                yield f"{label} == ntt_rows", got, ntt_kernel.ntt_rows(x, w, field)
+            del x, got, want
+
+
+def _shard(dev):
+    # shard 3 of 8 in the 2^24 LDE's first pass: its 512 rows with the
+    # coefficient prefix, its slice of the U table, base^{t·b} on store
+    from zkstark_tpu_torch.parallel import ntt_sharded
+
+    n, t, root = 1 << 24, 3, F101.subgroup_generator(1 << 24)
+    n1, n2, w, _, _ = ntt_sharded.sixstep_constants(n, root, False, F101, 8)
+    ut, vt = ntt_sharded._device_tables(n, root, False, F101, 8, torch.device("cuda", 0))
+    b, vblk = n2 // 8, vt.shape[0]
+    x = fp.as_u32(torch.cat([fp.as_i32(_rand_mont(F101, (b, n1 // 8), 37, dev)),
+                             torch.zeros((b, n1 - n1 // 8), dtype=torch.int32, device=dev)], 1))
+    scale = ntt_sharded._shard_scale(F101, STARK101.coset_offset, t * b)
+    assert scale is not None and STARK101.coset_offset == 5 and b % vblk == 0
+    yield _twin(*NTT, x, pow(w, n2, F101.p), F101, m=n1, scale=scale,
+                pre=GEO(5, n, col_stride=n2, row_stride=1),
+                uv=(ut[t * b // vblk : (t + 1) * b // vblk], vt))
+
+
+def _transposes(dev):
+    # the four-step's at 2^22, 2^24 and 2^25 (the first on the short
+    # coefficients); 16 at 2^20, bit-reversed rows too; a shard's send
+    # re-layout at stark-101 and 2^24 on a mesh of 8
+    for r, c, words in ((4096, 4096, 1 << 24), (512, 4096, 1 << 21), (1024, 4096, 1 << 22),
+                        (4096, 8192, 1 << 25), (8192, 4096, 1 << 25), (2048, 2048, 1 << 22),
+                        (2048, 2048, (1 << 22) - 1)):
+        yield _twin(*TRANSPOSE, _rand_mont(F101, words, r + c, dev), r, c)
+    for bsz, r, c, words, brev in ((16, 128, 1024, 1 << 17, False), (16, 1024, 1024, 1 << 20, True),
+                                   (16, 1024, 1024, 1 << 20, False)):
+        yield _twin(*TRANSPOSE, _rand_mont(F101, (bsz, words), r, dev), r, c, brev=brev)
+    for r, c, e, words in ((512, 8, 512, 1 << 21), (16, 8, 8, 1024), (16, 8, 8, 1000),
+                           (512, 8, 512, (1 << 21) - 5), (512, 8, 512, 0)):
+        yield _twin(*TRANSPOSE, _rand_mont(F101, words, e, dev), r, c, elem=e)
+
+
+def _fri_fold(dev):
+    # the 2^24 statement's first fold, solo and on one shard of 8, and 2^24
+    # on the second prime; B = 1 and 3, edge values in the first and last rows
+    for field, log_m in ((F101, 21), (F101, 24), (fp.FIELD_ALT, 24)):
+        p, m = field.p, 1 << log_m
+        for bsz in (1, 3):
+            rng = np.random.default_rng(log_m + bsz)
+            vals = rng.integers(0, p, (bsz, m), dtype=np.uint64).astype(np.uint32)
+            vals[0, :3], vals[-1, m // 2 :] = [0, 1, p - 1], p - 1
+            beta = fp.from_host(rng.integers(0, p, bsz, dtype=np.uint64).astype(np.uint32), dev)
+            yield _twin(fri_fold.fri_fold, fri_fold.fri_fold_plain, fp.from_host(vals, dev), beta,
+                        pow(field.subgroup_generator(m), p - 2, p), pow(5, p - 2, p), field)
+
+
+def _composition(dev):
+    # d = 2^24, B = 3 and 1; shards 0, 3 and 7 of 8 at d = 2^24 with halo and
+    # start, also against the whole domain's launch
+    for bsz in (3, 1):
+        f = _rand_mont(F101, (bsz, BIG.eval_domain), bsz, dev)
+        alphas = _rand_mont(F101, (bsz, BIG.n_constraints), bsz + 1, dev)
+        want = pr.composition_eval_plain(BIG, f, alphas)
+        yield (f"d=2^24 B={bsz}", pr.composition_eval_res(BIG, f, alphas),
+               (want, fp.from_mont_f(F101, want)))
+        del f, want
+    points, reach = BIG.eval_domain // 8, max(BIG.air.shifts) * BIG.blowup
+    f, alphas = _rand_mont(F101, BIG.eval_domain, 5, dev), _rand_mont(F101, BIG.n_constraints, 6, dev)
+    inv, prog = pr.composition_constants(BIG, f.device), pr.composition_program(BIG)
+    whole = pr.composition_eval_res(BIG, f, alphas)
+    for t in (0, 3, 7):
+        label, got, want = _twin(composition.composition, composition.composition_plain,
+                                 f[t * points : (t + 1) * points].clone(), inv, alphas, prog, F101,
+                                 halo=f[(t + 1) % 8 * points :][:reach].clone(), start=t * points)
+        yield f"{label} shard {t}", got, want
+        yield f"{label} shard {t} vs whole", got, [w[t * points : (t + 1) * points] for w in whole]
+
+
+def _glue(dev):
+    # from_mont at 2^24, stark-101 and 2^25; endpoint_fix at the INTTs of
+    # 2^24, stark-101 and 2^28 and of 32 stark-101 proofs; constants of
+    # square-chain and fibonacci-sq at 2^24 and of stark-101
+    from zkstark_tpu_torch.ops import constants, elementwise
+
+    for n in (1 << 24, 8192, 1 << 25):
+        yield _twin(elementwise.from_mont, elementwise.from_mont_plain, fp.from_host(_u32(n, n), dev))
+    for bsz, log_n in ((1, 21), (1, 10), (1, 25), (32, 10)):
+        yield _twin(elementwise.endpoint_fix, elementwise.endpoint_fix_plain,
+                    _rand_mont(F101, (bsz, 1 << log_n), log_n, dev))
+    for cfg in (BIG, STARK101, StarkConfig(trace_len=(1 << 21) - 1, boundary_first=1,
+                                           boundary_last=1, air=AIRS["fibonacci-sq"])):
+        label, got, want = _twin(constants.inverse_denominators, constants.inverse_denominators_plain,
+                                 pr.constants_system(cfg), cfg.field, dev)
+        yield f"{label} {cfg.air.name} d={cfg.eval_domain}", got, want
+
+
+def _openings(dev):
+    # the packed result and the openings alone: stark-101 at B = 1 and 32,
+    # 2^24 solo and on shard 3 of 8 (there also the solo words it owns); each
+    # tree random, in one allocation as the prover's
+    from zkstark_tpu_torch.hash import merkle
+    from zkstark_tpu_torch.ops import openings as open_op
+    from zkstark_tpu_torch.parallel.merkle_sharded import shard_tree
+    from zkstark_tpu_torch.protocol import openings
+
+    gen, rng = torch.Generator(device=dev).manual_seed(39), np.random.default_rng(39)
+
+    def u32(shape):
+        return fp.narrow(torch.randint(0, 1 << 32, shape, generator=gen, dtype=torch.int64,
+                                       device=dev))
+
+    for cfg, bsz, shards in ((STARK101, 1, 0), (STARK101, 32, 0), (BIG, 1, 0), (BIG, 1, 8)):
+        values, levels = [], []
+        for n in [cfg.eval_domain] + [cfg.eval_domain >> k for k in range(cfg.fri_rounds + 1)]:
+            values.append(u32((bsz, n)))
+            buf = u32((merkle.level_offset(n, n.bit_length(), bsz),))
+            levels.append(merkle.Levels([v.view((bsz, *v.shape[1:]))
+                                         for v in merkle._level_views(buf, bsz, n)], buf))
+        idx = fp.from_host(rng.integers(0, cfg.query_range, (bsz, cfg.n_queries), dtype=np.uint64)
+                           .astype(np.uint32), dev)
+        # the chain's draws: alphas, betas, then the queries (openings.draw_columns)
+        head = rng.integers(0, 1 << 32, (bsz, cfg.n_constraints + cfg.fri_rounds), dtype=np.uint64)
+        draws = fp.from_host(np.concatenate([head.astype(np.uint32), fp.to_host(idx)], axis=1), dev)
+        args = solo = [values[0], levels[0], values[1:], levels[1:]]
+        kw, shard = {}, None
+        if shards:
+            sh = [shard_tree(v, lv, shards) for v, lv in zip(values, levels)]
+            args = [sh[0][0], sh[0][1], [t[0] for t in sh[1:]], [t[1] for t in sh[1:]]]
+            kw, shard = dict(shard=3, block=3), 3
+        trees, qcol = openings.trees(*args, block=shard), openings.draw_columns(cfg)[2][0]
+        for fn, arg, segs, qs, srcs in (
+                (openings.packed_result, draws, openings.packed_segments(cfg), draws[:, qcol:], (draws,)),
+                (openings.sparse_openings_packed, idx, openings.segments(cfg), idx, ())):
+            label = f"{fn.__name__} {cfg.air.name} d={cfg.eval_domain} B={bsz} shard={shard}"
+            got = fn(cfg, *args, arg, **kw)
+            yield label, got, open_op.openings_plain(qs, trees, segs, shard, srcs)
+            if shards:
+                mine = fp.as_i32(got) != 0
+                yield f"{label} vs solo", fp.as_i32(got)[mine], fp.as_i32(fn(cfg, *solo, arg))[mine]
+        del values, levels, args, solo, trees, draws
+
+
+MAIN_PATH = {f.__name__[1:]: f for f in (_hashes, _rows, _lde_passes, _limb, _shard, _transposes,
+                                         _fri_fold, _composition, _glue, _openings)}
+
+
+@pytest.mark.parametrize("case", list(MAIN_PATH))
+def test_kernels_at_main_path_shapes(dev, case):
+    for label, got, want in MAIN_PATH[case](dev):
+        _same(f"{case}: {label}", got, want)
+        del got, want
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("bsz", [1, 32])
+def test_openings_on_the_fused_cores_arguments(dev, monkeypatch, bsz):
+    """`openings` on what a fused stark-101 core passes it, for one proof and
+    for 32 different rows (the batch32 cell's shape), equal to its twin."""
+    from zkstark_tpu_torch.ops import openings as open_op
+    from zkstark_tpu_torch.protocol import STARK101_SECRET, fused
+
+    seen, wrapper = [], open_op.openings
+    monkeypatch.setattr(open_op, "openings", lambda *a: seen.append((a, wrapper(*a))) or seen[-1][1])
+    if bsz == 1:
+        traces = fp.as_u32(fp.as_i32(pr.trace_to_device(STARK101, STARK101_SECRET, dev))[None])
+    else:
+        traces = _rand_mont(F101, (bsz, STARK101.trace_len), 32, dev)
+    fused._core(STARK101, traces, None)  # eager: a graph's replay makes no Python call
+    (args, got), = seen
+    _same("fused core", got, open_op.openings_plain(*args))

@@ -1,6 +1,7 @@
 """A process group of one process: the mesh's collectives go through
-`torch.distributed` (gloo here; ``chip_smoke.py`` runs the same on NCCL),
-not through the local mesh's device copies, and the proofs are the solo ones.
+`torch.distributed` (gloo here; ``test_torch_cuda_proofs.py`` runs the same
+on NCCL), not through the local mesh's device copies, and the proofs are the
+solo ones.
 
 The worker is this file run as a script in a fresh process (it imports no
 JAX): it starts the group itself (world size 1, rank 0, a free localhost
@@ -23,6 +24,17 @@ def _free_port() -> int:
     port = s.getsockname()[1]
     s.close()
     return port
+
+
+def run_worker(module: str, worker: str, timeout: int) -> dict:
+    """`module.worker(port)` in a fresh process, given a free localhost port:
+    the dict it returns, read from the JSON of its last line."""
+    code = (f"import sys; sys.path[:0] = [{str(ROOT)!r}, {str(ROOT / 'tests')!r}]; "
+            f"import json, {module} as t; print(json.dumps(t.{worker}({_free_port()})))")
+    run = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=timeout)
+    assert run.returncode == 0, run.stderr[-4000:]
+    return json.loads(run.stdout.strip().splitlines()[-1])
 
 
 def _worker(port: int) -> dict:
@@ -50,11 +62,6 @@ def _worker(port: int) -> dict:
 
 
 def test_group_of_one_proves_the_solo_bytes():
-    code = (f"import sys; sys.path[:0] = [{str(ROOT)!r}, {str(ROOT / 'tests')!r}]; "
-            f"import json, test_torch_group_of_one as t; print(json.dumps(t._worker({_free_port()})))")
-    run = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
-                         timeout=300)
-    assert run.returncode == 0, run.stderr[-3000:]
-    res = json.loads(run.stdout.strip().splitlines()[-1])
+    res = run_worker("test_torch_group_of_one", "_worker", 300)
     assert all(r["same"] for r in res.values()), res
     assert res["S=2"]["moved"] > 0 and res["1x2"]["moved"] > 0

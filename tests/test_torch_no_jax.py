@@ -1,7 +1,10 @@
-"""The port and its chip smoke test import neither JAX nor `zkstark_tpu`.
+"""The port and its card tests import neither JAX nor `zkstark_tpu`.
 
-A `sys.modules` check cannot show this where JAX is preloaded, so every
-import statement is read from the source with `ast`.
+The card tests (`tests/test_torch_cuda*.py`) run with ``--noconftest`` on a
+card machine that may have no JAX, so they, and `test_torch_group_of_one.py`,
+whose process launcher they share, are held to the package's rule. A
+`sys.modules` check cannot show this where JAX is preloaded, so every import
+statement is read from the source with `ast`.
 """
 
 import ast
@@ -10,7 +13,9 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "zkstark_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted((ROOT / "zkstark_tpu_torch").rglob("*.py"))
+         + sorted((ROOT / "tests").glob("test_torch_cuda*.py"))
+         + [ROOT / "tests" / "test_torch_group_of_one.py"])
 
 
 def _forbidden(name: str) -> bool:
@@ -49,6 +54,9 @@ def test_package_is_covered():
                 "fri_sharded.py", "pipeline.py"):
         assert f"zkstark_tpu_torch/parallel/{new}" in names
     for new in ("ops/openings.py", "ops/elementwise.py", "ops/constants.py",
-                "tools/scaling_bench.py", "tools/bench.py", "tools/roofline.py"):
+                "tools/scaling_bench.py"):
         assert f"zkstark_tpu_torch/{new}" in names
+    for card in ("test_torch_cuda.py", "test_torch_cuda_graph.py", "test_torch_cuda_proofs.py",
+                 "test_torch_group_of_one.py"):
+        assert f"tests/{card}" in names
     assert len(names) >= 41
