@@ -27,13 +27,15 @@ import numpy as np
 import pytest
 import torch
 
+from proofbench.reference import prover as reference
+from proofbench.yardstick import statement
 from zkstark_tpu_torch import ops
 from zkstark_tpu_torch.field import fp
 from zkstark_tpu_torch.native import verify_native
 from zkstark_tpu_torch.ntt import core as ntt_core
 from zkstark_tpu_torch.protocol import STARK101, STARK101_SECRET, fused, graph, prove, verify
 from zkstark_tpu_torch.protocol import prover as pr
-from zkstark_tpu_torch.protocol.air import SQUARE_CHAIN
+from zkstark_tpu_torch.protocol.air import SQUARE_CHAIN, WINTERFELL_WORK
 from zkstark_tpu_torch.protocol.config import StarkConfig
 from zkstark_tpu_torch.protocol.proof import expected_proof_len
 
@@ -424,6 +426,37 @@ def test_prove_pipelined_equals_solo(dev, golden, proof24):
     verify_native(proofs[-1], cfg)
     _require(counts, (*ROW_KERNELS, "transpose", *FUSED_KERNELS, "openings", "endpoint_fix",
                       "from_mont"))
+
+
+def _reference(cfg: StarkConfig, secret: int, dev) -> tuple:
+    """(state, data) of the benchmark's plain reference (``proofbench/
+    reference``: int64 torch and hashlib, none of the port's code) for the
+    port config's statement and `secret`, computed on `dev`."""
+    st = statement.Statement(
+        name=cfg.air.name, air=cfg.air.name, trace_len=cfg.trace_len, blowup=cfg.blowup,
+        coset_offset=cfg.coset_offset, n_queries=cfg.n_queries, p=cfg.field.p, generator=5,
+        boundary_first=cfg.boundary_first, boundary_last=cfg.boundary_last, secret=secret)
+    return reference.prove(st, secret, device=dev)
+
+
+def test_decommit_byte_map_equals_the_reference(dev):
+    """The decommit's byte map (`prover.decommit_layout`) on the card's
+    fetched openings: a `winterfell_work`-shaped proof (32 queries, degree-3
+    FRI rounds, 2^20 points, eager) and a `prove_batch` of four stark-101
+    witnesses (s and p − s), each equal to the plain reference's bytes."""
+    from zkstark_tpu_torch.protocol.batch import prove_batch
+
+    p, rows, start = STARK101.field.p, (1 << 17) - 1, 2**31 + 23
+    cfg = StarkConfig(trace_len=rows, n_queries=32, boundary_first=start, air=WINTERFELL_WORK,
+                      boundary_last=int(WINTERFELL_WORK.trace(rows, start, p)[-1]))
+    got = prove(cfg, start, device=dev)
+    assert (got.state, got.data) == _reference(cfg, start, dev)
+    assert len(got.data) == expected_proof_len(cfg)
+    secrets = [STARK101_SECRET, p - STARK101_SECRET] * 2
+    proofs = prove_batch(STARK101, secrets, device=dev)
+    for proof, s in zip(proofs, secrets):
+        assert (proof.state, proof.data) == _reference(STARK101, s, dev)
+    assert proofs[0] == proofs[2] != proofs[1] == proofs[3]
 
 
 def sharded_bytes(cfg, shards: int) -> dict:

@@ -126,6 +126,7 @@ def test_cache_misses_count_new_statements(monkeypatch):
     cfg, other = small(4), small(8)
     pr.composition_constants(cfg, cpu)  # cfg's caches filled
     pr.composition_program(cfg)
+    pr.decommit_layout(cfg)
     fused._zero_state(1, cpu)
     tracing.reset()
     prove(cfg, SECRET, device="cpu")
@@ -133,12 +134,15 @@ def test_cache_misses_count_new_statements(monkeypatch):
     assert "cache.build" not in tracing.totals()["spans"]
     pr.composition_constants.cache_clear()
     pr.composition_program.cache_clear()
+    pr.decommit_layout.cache_clear()
     prove(other, SECRET, device="cpu")
     pr.composition_constants(other, cpu)
     pr.composition_program(other)
+    pr.decommit_layout(other)
     misses = cache_counters()
-    assert misses == {"cache.miss.composition_constants": 1, "cache.miss.composition_program": 1}
-    assert tracing.totals()["spans"]["cache.build"]["count"] == 2
+    assert misses == {"cache.miss.composition_constants": 1, "cache.miss.composition_program": 1,
+                      "cache.miss.decommit_layout": 1}
+    assert tracing.totals()["spans"]["cache.build"]["count"] == 3
     # the CPU takes its constants from host numpy: the card's system is built on demand
     pr.constants_system.cache_clear()
     pr.constants_system(other)

@@ -35,14 +35,21 @@ def map_leaves(tree: dict, fn) -> dict:
     return {k: [fn(t) for t in v] if isinstance(v, list) else fn(v) for k, v in tree.items()}
 
 
+def tree_leaves(tree: dict, keys=None) -> list:
+    """The leaves of a dict whose values are leaves or lists of leaves, in
+    `pack_tree`'s order: keys sorted (those of `keys` alone, where given),
+    lists in order."""
+    leaves = []
+    for key in sorted(tree if keys is None else keys):
+        leaves += tree[key] if isinstance(tree[key], list) else [tree[key]]
+    return leaves
+
+
 def pack_tree(out: dict) -> torch.Tensor:
     """Every uint32 leaf of a dict of device tensors ravelled into one flat
     device vector (keys sorted, lists in order): one transfer instead of some
     thirty, re-sliced on the host by `unpack_tree`."""
-    leaves = []
-    for key in sorted(out):
-        leaves += out[key] if isinstance(out[key], list) else [out[key]]
-    return fp.as_u32(torch.cat([fp.as_i32(leaf).reshape(-1) for leaf in leaves]))
+    return fp.as_u32(torch.cat([fp.as_i32(leaf).reshape(-1) for leaf in tree_leaves(out)]))
 
 
 def unpack_tree(flat: np.ndarray, shapes: dict) -> dict:

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import functools
 from collections import deque
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -41,13 +42,17 @@ from zkstark_tpu_torch import ntt, tracing
 from zkstark_tpu_torch.field import fp
 from zkstark_tpu_torch.field.fp import resolve_device
 from zkstark_tpu_torch.hash import merkle
-from zkstark_tpu_torch.hash.sha256 import digest_to_bytes
 from zkstark_tpu_torch.ops import composition, constants, elementwise, fri_fold, powers, tables
 from zkstark_tpu_torch.protocol import air, witness
 from zkstark_tpu_torch.protocol.config import StarkConfig
-from zkstark_tpu_torch.protocol.openings import sparse_openings
+from zkstark_tpu_torch.protocol.openings import (
+    opening_shapes,
+    sparse_openings,
+    tree_leaves,
+    unpack_tree,
+)
 from zkstark_tpu_torch.protocol.proof import Proof
-from zkstark_tpu_torch.transcript import Channel, bincode
+from zkstark_tpu_torch.transcript import Channel
 
 # On the CPU, domains up to this size get their protocol constants from exact
 # host numpy, bigger ones from plain torch (prover.py:50 of the JAX package);
@@ -318,10 +323,6 @@ def _root_bytes(levels: list) -> bytes:
     return merkle.MerkleTree(levels=levels).root()
 
 
-def _path_bytes(path) -> list:
-    return [digest_to_bytes(path[d]) for d in range(path.shape[0])]
-
-
 class DeviceChannelMismatch(RuntimeError):
     """The device-derived Fiat-Shamir chain disagreed with the host replay."""
 
@@ -446,37 +447,100 @@ def device_phases(
     return out, queries
 
 
+class DecommitLayout(NamedTuple):
+    """Where a proof's decommit transcript comes from (`decommit_layout`).
+    Every field of it is a whole 32-bit word (a u32 value, a u64 path length
+    as two words, a digest as eight), so the map is laid per word.
+
+    index: the byte map, one np.intp entry per 4 bytes: `np.take(src,
+      index)`, viewed as bytes, is the whole transcript, where src is the
+      `words` words of the opening leaves big-endian (`pack_tree`'s order:
+      the path words as `digest_to_bytes` lays them), then the words of the
+      value leaves and `tail` little-endian (`bincode.ser_u32`'s order);
+    cuts: the byte offset at which each of the reference's commits ends, in
+      commit order (the last one the transcript's length);
+    tail: the bincode u64 path lengths, one per distinct depth, as
+      little-endian uint32 pairs (length, 0);
+    words: the words of the opening leaves;
+    src_words: the words of src."""
+
+    index: np.ndarray
+    cuts: tuple
+    tail: np.ndarray
+    words: int
+    src_words: int
+
+
+# the opening leaves' keys, the same for every statement, and those of values
+_OPENING_KEYS = tuple(opening_shapes(StarkConfig()))
+_VALUE_KEYS = ("open_cp_vals", "open_f_vals", "open_fri_vals")
+
+
+@functools.lru_cache(maxsize=16)
+@tracing.on_miss("decommit_layout")
+def decommit_layout(cfg: StarkConfig) -> DecommitLayout:
+    """The byte map and the commit cuts of `decommit` for the statement's
+    shapes (queries, shifts, FRI rounds, depth). The commits are the
+    reference's (prover.rs:256-289), generalised to n_queries: per query,
+    each trace shift's (u32, AuthPath), the composition's, then per FRI layer
+    (u32, u32, AuthPath, AuthPath)."""
+    shapes = opening_shapes(cfg)
+    value_shapes = {key: shapes[key] for key in _VALUE_KEYS}
+    words = sum(int(np.prod(shape)) for shape in tree_leaves(shapes))
+    value_words = sum(int(np.prod(shape)) for shape in tree_leaves(value_shapes))
+    # each leaf word's position in src: big-endian, and the values' little-endian
+    big = unpack_tree(np.arange(words), shapes)
+    little = unpack_tree(words + np.arange(value_words), value_shapes)
+    depth = cfg.eval_domain.bit_length() - 1
+    depths = range(depth - cfg.fri_rounds + 1, depth + 1)
+    tail = np.array([(d, 0) for d in depths], dtype="<u4").reshape(-1)
+    length_at = {d: words + value_words + 2 * j + np.arange(2) for j, d in enumerate(depths)}
+    pieces, cuts = [], [0]
+
+    def commit(values, *paths):
+        got = [values.reshape(-1)]
+        for path in paths:
+            got += [length_at[path.shape[0]], path.reshape(-1)]
+        pieces.extend(got)
+        cuts.append(cuts[-1] + 4 * sum(piece.size for piece in got))
+
+    for qi in range(cfg.n_queries):
+        for si in range(len(cfg.air.shifts)):
+            commit(little["open_f_vals"][qi, si], big["open_f_paths"][qi, si])
+        commit(little["open_cp_vals"][qi], big["open_cp_paths"][qi])
+        for vals, paths in zip(little["open_fri_vals"], big["open_fri_paths"]):
+            commit(vals[qi], paths[qi, 0], paths[qi, 1])
+    index = np.concatenate(pieces)
+    for shared in (index, tail):  # every caller of the cache reads the same arrays
+        shared.setflags(write=False)
+    return DecommitLayout(index, tuple(cuts[1:]), tail, words, words + value_words + tail.size)
+
+
+def _words(out: dict, keys) -> list:
+    return [np.asarray(leaf, dtype=np.uint32).reshape(-1) for leaf in tree_leaves(out, keys)]
+
+
 def decommit(cfg: StarkConfig, channel: Channel, out: dict, queries: list) -> Proof:
-    """Phase 4 from the fetched openings, then the final state; commit order
-    is the reference's (prover.rs:256-289), generalised to n_queries. Counts
-    the openings serialized (``decommit.openings``, a FRI pair one) and the
-    bytes committed (``decommit.bytes``), once a call."""
+    """Phase 4 from the fetched openings, then the final state: the
+    transcript's bytes laid down by one gather through `decommit_layout`'s
+    byte map and committed by its cuts (`Channel.commit_cuts`), in the
+    reference's commit order (prover.rs:256-289), generalised to n_queries.
+    Counts the openings serialized (``decommit.openings``, a FRI pair one)
+    and the bytes committed (``decommit.bytes``), once a call."""
     with tracing.span("decommit"):
-        start = len(channel.data)
-        for qi in range(len(queries)):
-            for si in range(len(cfg.air.shifts)):
-                channel.commit_bytes(
-                    bincode.ser_opening(
-                        int(out["open_f_vals"][qi][si]),
-                        _path_bytes(out["open_f_paths"][qi][si]),
-                    )
-                )
-            channel.commit_bytes(
-                bincode.ser_opening(
-                    int(out["open_cp_vals"][qi]), _path_bytes(out["open_cp_paths"][qi])
-                )
-            )
-            for layer in range(cfg.fri_rounds):
-                v = out["open_fri_vals"][layer][qi]
-                p = out["open_fri_paths"][layer][qi]
-                channel.commit_bytes(
-                    bincode.ser_fri_opening(
-                        int(v[0]), int(v[1]), _path_bytes(p[0]), _path_bytes(p[1])
-                    )
-                )
-        tracing.count("decommit.openings",
-                      len(queries) * (len(cfg.air.shifts) + 1 + cfg.fri_rounds))
-        tracing.count("decommit.bytes", len(channel.data) - start)
+        layout = decommit_layout(cfg)
+        leaves = _words(out, _OPENING_KEYS)
+        size = sum(leaf.size for leaf in leaves)
+        if size != layout.words or len(queries) != cfg.n_queries:
+            raise ValueError(f"openings of {size} words and {len(queries)} queries do not fit "
+                             "the statement")
+        src = np.empty(layout.src_words, dtype="<u4")
+        np.concatenate(leaves, out=src[:size].view(">u4"))
+        np.concatenate([*_words(out, _VALUE_KEYS), layout.tail], out=src[size:])
+        payload = np.take(src, layout.index).view(np.uint8)
+        channel.commit_cuts(payload, layout.cuts)
+        tracing.count("decommit.openings", len(layout.cuts))
+        tracing.count("decommit.bytes", payload.size)
         state, data = channel.finalize()
         return Proof(state=state, data=data)
 
@@ -488,16 +552,16 @@ def fused_replay(cfg: StarkConfig, channel: Channel, out: dict) -> list:
     the device chain against the host chain. `out` is one proof's fetched
     `fused_core` dict (numpy). Returns the query indices."""
     with tracing.span("replay"):
-        roots = out["roots"]
-        channel.commit_hash(digest_to_bytes(roots[0]))
+        roots = np.asarray(out["roots"], dtype=">u4").tobytes()  # 32 bytes a root
+        channel.commit_hash(roots[:32])
         for k in range(cfg.n_constraints):
             if channel.get_u32() != int(out["alphas"][k]):
                 raise DeviceChannelMismatch(f"alpha[{k}]")
-        channel.commit_hash(digest_to_bytes(roots[1]))
+        channel.commit_hash(roots[32:64])
         for layer in range(cfg.fri_rounds):
             if channel.get_u32() != int(out["betas"][layer]):
                 raise DeviceChannelMismatch(f"beta[{layer}]")
-            channel.commit_hash(digest_to_bytes(roots[2 + layer]))
+            channel.commit_hash(roots[32 * (2 + layer) : 32 * (3 + layer)])
         channel.commit_u32(int(out["free_term"]))
         queries = []
         for qi in range(cfg.n_queries):

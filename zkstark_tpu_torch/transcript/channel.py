@@ -32,6 +32,22 @@ class Channel:
         self.state = hashlib.sha256(self.state + payload).digest()
         self.data += payload
 
+    def commit_cuts(self, payload, cuts) -> None:
+        """`commit_bytes` of each piece of `payload` (any byte buffer) that
+        ends at an offset of `cuts` (increasing, the last len(payload)), in
+        order: one hash a piece over slices of the one buffer, which the
+        transcript then takes whole."""
+        view = memoryview(payload).cast("B")
+        if not cuts or cuts[-1] != len(view):
+            raise ValueError(f"cuts must end at the payload's {len(view)} bytes")
+        state, start = self.state, 0
+        for end in cuts:
+            h = hashlib.sha256(state)
+            h.update(view[start:end])
+            state, start = h.digest(), end
+        self.state = state
+        self.data += view
+
     def commit_hash(self, digest: bytes) -> None:
         self.commit_bytes(bincode.ser_hash(digest))
 
