@@ -5,19 +5,22 @@ It follows the protocol of the STARK 101 reference (Crocodoctopus/zkstark,
 src/prover.rs, channel.rs, merkle.rs, proof.rs) generalised to an AIR and a
 query count, and shares no code with the program:
 
-1. the witness rows (``airs/<air>.py``: its rows, constraints, shifts and
-   FRI rounds; the public values are the witness's), their polynomial of degree
-   at most n − 2 on the trace group ⟨g⟩ (n = trace_len + 1): the n − 1 rows
-   and the one value at g^(n−1) that makes the top coefficient vanish, then
-   an inverse NTT; its evaluations on the coset offset·⟨h⟩ of n·blowup
-   points; their Merkle root into the channel;
+1. the witness rows (``airs/<air>.py``: its rows of w columns, constraints,
+   shifts and FRI rounds; the public values are the witness's), checked
+   against every boundary constraint; each column's polynomial of degree at
+   most n − 2 on the trace group ⟨g⟩ (n = trace_len + 1): the n − 1 rows and
+   the one value at g^(n−1) that makes its top coefficient vanish, then an
+   inverse NTT; its evaluations on the coset offset·⟨h⟩ of n·blowup points;
+   the root of the one Merkle tree whose leaf i is the row of the w columns
+   at point i, into the channel;
 2. one α per constraint, the composition Σ αᵢ·cᵢ(x) at every coset point
    (boundary: (f(x) − v)/(x − g^step); transition: numerator·Π(x − g^e) /
    (x^n − 1)); its root;
 3. per FRI round a β, the fold P'(x²) = (P(x) + P(−x))/2 + β·(P(x) − P(−x))/(2x),
    its root; the last layer's first value (the free term);
 4. the query draws (mod domain − max_shift·blowup), then per query the trace
-   openings at q + k·blowup for each shift k, the composition at q, and per
+   openings at q + k·blowup for each shift k (the row's w values, then its
+   path), the composition at q, and per
    FRI layer the pair at q and q + m/2 (mod m), each with its path.
 
 The channel: a 32-byte state, each payload committed as state =
@@ -126,11 +129,16 @@ def _path(path: list) -> bytes:
     return struct.pack("<Q", len(path)) + b"".join(path)
 
 
+def _column(boundary: tuple) -> int:
+    """A boundary's column: its third field, 0 where it has two."""
+    return boundary[2] if len(boundary) > 2 else 0
+
+
 def prove(st: Statement, witness: int, device="cpu", degree_fix: bool = True) -> tuple:
     """(state, data) of the proof of `st` for `witness` (a
     ``statement.Witness``, or a bare secret proving the statement's own
-    public values). degree_fix=False leaves the top coefficient of the trace
-    polynomial in (the control: a polynomial of degree n − 1, past the
+    public values). degree_fix=False leaves the top coefficient of column
+    0's polynomial in (the control: a polynomial of degree n − 1, past the
     statement's degree bound)."""
     fld, p = Field(st.p), st.p
     n, d, b = st.trace_domain, st.eval_domain, st.blowup
@@ -141,32 +149,41 @@ def prove(st: Statement, witness: int, device="cpu", degree_fix: bool = True) ->
     rounds = air.fri_rounds(n)
     ch = Channel()
 
-    # 1. witness, trace polynomial, LDE on the coset, commit
-    rows = air.trace(st.trace_len, int(witness), p)
-    if int(rows[-1]) != publics["boundary_last"]:
-        raise ValueError("the secret's trace misses the public output")
-    v = torch.as_tensor(rows.astype("int64"), device=device)
-    top = int(fld.mul(v, fld.powers(g, n - 1, device)).sum()) % p
-    last = (-g * top) % p if degree_fix else 0
-    coeffs = intt(fld, torch.cat([v, v.new_tensor([last])]), g)
-    if degree_fix and int(coeffs[-1]) != 0:
-        raise AssertionError("trace polynomial above its degree bound")
-    padded = torch.zeros(d, dtype=torch.int64, device=device)
-    padded[:n] = fld.mul(coeffs, fld.powers(st.coset_offset, n, device))
-    f = ntt(fld, padded, h)
-    del padded, coeffs
-    f_tree = sha256.Tree(f)
+    # 1. witness, trace polynomials, LDE on the coset, commit
+    w = st.width
+    cols = air.trace(st.trace_len, int(witness), p).reshape(st.trace_len, w).T
+    for kind, data in cons:
+        if kind == "boundary" and int(cols[_column(data), data[0]]) != data[1]:
+            raise ValueError("the secret's trace misses the public output")
+    g_pows = fld.powers(g, n - 1, device)
+    f = torch.empty((w, d), dtype=torch.int64, device=device)
+    for j in range(w):
+        v = torch.as_tensor(cols[j].astype("int64"), device=device)
+        fix = degree_fix or j > 0
+        top = int(fld.mul(v, g_pows).sum()) % p
+        last = (-g * top) % p if fix else 0
+        coeffs = intt(fld, torch.cat([v, v.new_tensor([last])]), g)
+        if fix and int(coeffs[-1]) != 0:
+            raise AssertionError("trace polynomial above its degree bound")
+        padded = torch.zeros(d, dtype=torch.int64, device=device)
+        padded[:n] = fld.mul(coeffs, fld.powers(st.coset_offset, n, device))
+        f[j] = ntt(fld, padded, h)
+        del padded, coeffs
+    f_tree = sha256.Tree(f.t())
     ch.commit(f_tree.root())
 
     # 2. composition
     alphas = [ch.draw() % p for _ in cons]
     xs = fld.powers(h, d, device, scale=st.coset_offset)
-    fk = {k: torch.roll(f, -k * b) for k in shifts}
-    cp = torch.zeros_like(f)
+    fk = {k: torch.roll(f, -k * b, dims=1) for k in shifts}
+    if w == 1:
+        fk = {k: v[0] for k, v in fk.items()}
+    cp = torch.zeros(d, dtype=torch.int64, device=device)
     for alpha, (kind, data) in zip(alphas, cons):
         if kind == "boundary":
-            step, value = data
-            term = fld.mul((fk[0] - value) % p, fld.inv((xs - pow(g, step, p)) % p))
+            step, value = data[:2]
+            col = fk[0] if w == 1 else fk[0][_column(data)]
+            term = fld.mul((col - value) % p, fld.inv((xs - pow(g, step, p)) % p))
         else:
             num, exempt = data
             den = fld.inv((fld.pow(xs, n) - 1) % p)
@@ -202,7 +219,7 @@ def prove(st: Statement, witness: int, device="cpu", degree_fix: bool = True) ->
     for q in queries:
         for k in shifts:
             i = q + k * b
-            ch.commit(struct.pack("<I", f_tree.value(i)) + _path(f_tree.path(i)))
+            ch.commit(struct.pack(f"<{w}I", *f_tree.row(i)) + _path(f_tree.path(i)))
         ch.commit(struct.pack("<I", cp_tree.value(q)) + _path(cp_tree.path(q)))
         for tree in layers[:rounds]:
             m = tree.values.shape[0]

@@ -1,10 +1,12 @@
 """SHA-256 Merkle trees in plain PyTorch and hashlib, for the reference prover.
 
-Leaves are the SHA-256 of each value's 4 big-endian bytes; a parent is the
-SHA-256 of its children's 64 bytes, left then right; a path is the sibling
-digests from the leaf up. Wide levels are hashed as whole-tensor int64 ops
-(32-bit words, masked after each add) on the values' device, in blocks of
-rows; levels of at most `HOST_MAX` digests on the host with hashlib.
+A leaf is the SHA-256 of one row of w values, each 4 bytes big-endian, in
+column order (w = 1: one value); a parent is the SHA-256 of its children's
+64 bytes, left then right; a path is the sibling digests from the leaf up.
+Wide levels are hashed as whole-tensor int64 ops (32-bit words, masked after
+each add) on the values' device, in blocks of rows; levels of at most
+`HOST_MAX` digests, and leaves of rows too wide for one SHA-256 block, on
+the host with hashlib.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ M32 = 0xFFFFFFFF
 
 HOST_MAX = 1 << 12  # levels this narrow are hashed with hashlib
 BLOCK_ROWS = 1 << 22  # rows a block of the tensor path
+ONE_BLOCK_WORDS = 13  # the widest row whose padded message is one block
 
 
 def _doubled(x):
@@ -91,9 +94,13 @@ def _compress(state: list, w16: list) -> list:
     return [(s + o) & M32 for s, o in zip(state, (a, b, c, d, e, f, g, h))]
 
 
-def _leaf_block(v: torch.Tensor) -> torch.Tensor:
-    words = _compress(list(H0), [v, 0x80000000] + [0] * 13 + [32])
-    return torch.stack([x if isinstance(x, torch.Tensor) else torch.full_like(v, x)
+def _leaf_block(rows: torch.Tensor) -> torch.Tensor:
+    """(k, w) int64 words, w ≤ ONE_BLOCK_WORDS → (k, 8): the row, the pad
+    word, zeros and the message's bit length make one block."""
+    w = rows.shape[1]
+    cols = [rows[:, j] for j in range(w)]
+    words = _compress(list(H0), cols + [0x80000000] + [0] * (14 - w) + [32 * w])
+    return torch.stack([x if isinstance(x, torch.Tensor) else torch.full_like(cols[0], x)
                         for x in words], dim=1)
 
 
@@ -116,12 +123,14 @@ def _host_digests(msgs: bytes, size: int) -> np.ndarray:
 
 
 def leaves(values: torch.Tensor):
-    """Leaf digests of (n,) int64 residues: a (n, 8) int64 tensor on their
-    device, or a (n, 8) uint32 host array where n ≤ HOST_MAX."""
-    if values.shape[0] <= HOST_MAX:
-        raw = values.cpu().numpy().astype(">u4").tobytes()
-        return _host_digests(raw, 4)
-    return _blocks(_leaf_block, values)
+    """Leaf digests of (n,) or (n, w) int64 residues, a leaf a row: a (n, 8)
+    int64 tensor on their device, or a (n, 8) uint32 host array where
+    n ≤ HOST_MAX or w > ONE_BLOCK_WORDS."""
+    rows = values.reshape(values.shape[0], -1)
+    if rows.shape[0] <= HOST_MAX or rows.shape[1] > ONE_BLOCK_WORDS:
+        raw = rows.cpu().numpy().astype(">u4").tobytes()
+        return _host_digests(raw, 4 * rows.shape[1])
+    return _blocks(_leaf_block, rows)
 
 
 def parents(level):
@@ -141,8 +150,8 @@ def digest_bytes(level, index: int) -> bytes:
 
 
 class Tree:
-    """Every level of a Merkle tree over (n,) int64 residues, n a power of
-    two, leaf level first."""
+    """Every level of a Merkle tree over (n,) int64 residues or (n, w) rows
+    of them, n a power of two, leaf level first."""
 
     def __init__(self, values: torch.Tensor):
         self.values = values
@@ -155,6 +164,10 @@ class Tree:
 
     def value(self, index: int) -> int:
         return int(self.values[index])
+
+    def row(self, index: int) -> list:
+        """The leaf's values, in column order."""
+        return self.values[index].reshape(-1).tolist()
 
     def path(self, index: int) -> list:
         """Sibling digests from the leaf up."""

@@ -5,12 +5,17 @@ A statement file (``configs/<name>.json``) fixes the AIR, the trace length,
 the blowup, the coset offset, the query count and the field. Its `air` names
 a file of the benchmark, ``airs/<air>.py`` (`-` read as `_`), which defines
 
-* ``trace(trace_len, secret, p)``: the witness rows (uint32 residues);
+* ``WIDTH``, optional: the trace's columns, w (1 where it is absent);
+* ``trace(trace_len, secret, p)``: the witness rows (uint32 residues), of
+  shape ``(trace_len,)`` where w = 1 and ``(trace_len, w)`` otherwise;
 * ``witnesses(seed, cfg)``: the short cycle of (secret, publics) pairs a run
   proves in turn, publics being ``{"boundary_first", "boundary_last"}``;
 * ``constraints(st, publics)``: the reference's ([(kind, data)], shifts),
-  in alpha order: ("boundary", (step, value)) or ("transition", (numerator,
-  exempt steps)), the numerator taking the field and {shift: f(g^k·x)};
+  in alpha order: ("boundary", (step, value)) on column 0, or ("boundary",
+  (step, value, column)); or ("transition", (numerator, exempt steps)), the
+  numerator taking the field and {shift k: f(g^k·x)}, where f[k] is a
+  ``(d,)`` tensor for w = 1 and a ``(w, d)`` one otherwise (f[k][j]: column
+  j at shift k);
 * ``fri_rounds(trace_domain)``: the folds down to degree 0.
 
 Adding a statement is adding files: the harness names no AIR.
@@ -91,6 +96,11 @@ class Statement:
     @property
     def eval_domain(self) -> int:
         return self.trace_domain * self.blowup
+
+    @property
+    def width(self) -> int:
+        """The trace's columns: the AIR's ``WIDTH``, 1 where it has none."""
+        return int(getattr(load_air(self.air), "WIDTH", 1))
 
     @property
     def fri_rounds(self) -> int:
