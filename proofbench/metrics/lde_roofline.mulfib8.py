@@ -1,0 +1,8 @@
+"""`lde_roofline`, reported under a name of its own: the same reader
+(``metrics/lde_roofline.py``) in the cells that list this name."""
+
+from proofbench import run as bench_run
+
+
+def read(run):
+    return bench_run.reader("lde_roofline")(run)

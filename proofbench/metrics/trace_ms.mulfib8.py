@@ -1,0 +1,8 @@
+"""`trace_ms.solo`, reported under a name of its own: the same reader
+(``metrics/trace_ms.solo.py``) in the cells that list this name."""
+
+from proofbench import run as bench_run
+
+
+def read(run):
+    return bench_run.reader("trace_ms.solo")(run)

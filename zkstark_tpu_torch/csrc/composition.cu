@@ -14,6 +14,8 @@
 //     [0, value]                 num = f[j] - value                  (boundary)
 //     [1, n_ops, (op, arg)...]   num = the postfix program's result  (transition)
 //       OP_F      push f[(j + arg) mod d]      (f(g^k x_j): arg = k·blowup)
+//                 or, with w > 1 columns, f_c[(j + s) mod d] for
+//                 arg = c·d + s: column c of the proof's (w, d) rows
 //       OP_X      push x_j = offset · h^j      (two table words and a scalar)
 //       OP_CONST  push arg                     (Montgomery)
 //       OP_ADD, OP_SUB, OP_MUL  pop b, pop a, push a op b
@@ -29,6 +31,12 @@
 // len = d, start = 0 and the read wraps mod d. The inverse denominators are
 // read at column start + i of their (n_constraints, d) rows, and x_j from the
 // tables at start + i.
+//
+// A trace of w > 1 columns (the instance kWide) holds each proof's columns
+// one after the other, (batch, w, d), and is never a shard's block. Its
+// boundaries on a column c > 0 come as transition programs (OP_F c·d, OP_CONST
+// value, OP_SUB); the boundary kind reads column 0. kWide = false is the one
+// column's instance as it was: it reads neither `width` nor `log_d`.
 //
 // Bound by bytes: 4 read for f (its shifted reads hit cache), 4 per constraint
 // for the inverse denominators, 8 written, against some tens of integer ops
@@ -63,6 +71,8 @@ struct CompArgs {
   int64_t start;           // the domain index of point 0
   int64_t d;
   Fp field;
+  int64_t width;           // columns a proof (kWide)
+  int log_d;               // log2 d (kWide)
 };
 
 template <int PER>
@@ -84,13 +94,13 @@ __device__ __forceinline__ void store_words(uint32_t* p, const uint32_t (&v)[PER
   }
 }
 
-template <int PER>
+template <int PER, bool kWide>
 __global__ void __launch_bounds__(kThreads) composition_kernel(const CompArgs a) {
   const int64_t j0 = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * PER;
   if (j0 >= a.len) return;
   const Fp f = a.field;
   const int64_t b = blockIdx.y;
-  const uint32_t* frow = a.f + b * a.len;
+  const uint32_t* frow = a.f + b * a.len * (kWide ? a.width : 1);
   const uint32_t* hrow = a.halo == nullptr ? nullptr : a.halo + b * a.hlen;
   const uint32_t* pw = a.prog;
   const int n_con = static_cast<int>(__ldg(pw++));
@@ -119,7 +129,11 @@ __global__ void __launch_bounds__(kThreads) composition_kernel(const CompArgs a)
             for (int e = 0; e < PER; ++e) st[below][e] = num[e];
           }
           ++below;
-          if (op == OP_F) {
+          if (kWide && op == OP_F) {
+            // arg = c·d + s, s < d; with PER = 4, s a multiple of 4
+            const int64_t at = j0 + (arg & static_cast<uint32_t>(a.d - 1));
+            load_words<PER>(frow + (arg >> a.log_d) * a.len + (at < a.len ? at : at - a.len), num);
+          } else if (op == OP_F) {
             // arg < d; with PER = 4 a multiple of 4, like j0, len and hlen
             const int64_t at = j0 + arg;
             if (at < a.len) {
@@ -174,7 +188,8 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 
 }  // namespace
 
-// f: (batch, len); halo: (batch, hlen) or null (then len = d, start = 0);
+// f: (batch, len), or (batch, width, len) for width > 1 columns (then no
+// halo, and d a power of two); halo: (batch, hlen) or null (then len = d, start = 0);
 // inv: (n_constraints, d); alphas: (batch, n_constraints); prog: the program's
 // `prog_words` words; ga, gb, shift: the two-table form of h^j for j < d;
 // offset: the coset offset (Montgomery); cp, res: (batch, len), points
@@ -185,15 +200,18 @@ extern "C" int zk_composition(const uint32_t* f, const uint32_t* halo, int64_t h
                               int prog_words, int shifts_by_4, const uint32_t* ga,
                               const uint32_t* gb, int shift, uint32_t offset, uint32_t* cp,
                               uint32_t* res, int64_t batch, int64_t len, int64_t start, int64_t d,
-                              uint32_t p, uint32_t pinv, cudaStream_t stream) {
+                              uint32_t p, uint32_t pinv, int64_t width, cudaStream_t stream) {
   if (batch < 0 || batch > 65535 || d < 0 || d > (1LL << 40) || prog_words < 1 || shift < 0 ||
       shift > 31 || len < 0 || start < 0 || start + len > d || hlen < 0 ||
-      (halo == nullptr && (len != d || start != 0))) {
+      (halo == nullptr && (len != d || start != 0)) || width < 1 ||
+      (width > 1 && (halo != nullptr || (d & (d - 1)) != 0 || width * d > (1LL << 32)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch > 0 && len > 0) {
+    int log_d = 0;
+    while ((int64_t{1} << log_d) < d) ++log_d;
     const CompArgs a{f,  halo, inv,  alphas, prog, ga,    gb, shift, offset,
-                     cp, res,  len,  hlen,   start, d,    Fp{p, pinv}};
+                     cp, res,  len,  hlen,   start, d,    Fp{p, pinv}, width, log_d};
     const bool vec = shifts_by_4 && d % 4 == 0 && len % 4 == 0 && hlen % 4 == 0 && start % 4 == 0 &&
                      aligned16(f) && aligned16(inv) && aligned16(cp) && aligned16(res) &&
                      (halo == nullptr || aligned16(halo));
@@ -201,10 +219,16 @@ extern "C" int zk_composition(const uint32_t* f, const uint32_t* halo, int64_t h
     const int64_t blocks = (threads + kThreads - 1) / kThreads;
     if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(batch));
-    if (vec) {
-      composition_kernel<4><<<grid, kThreads, 0, stream>>>(a);
+    if (width > 1) {
+      if (vec) {
+        composition_kernel<4, true><<<grid, kThreads, 0, stream>>>(a);
+      } else {
+        composition_kernel<1, true><<<grid, kThreads, 0, stream>>>(a);
+      }
+    } else if (vec) {
+      composition_kernel<4, false><<<grid, kThreads, 0, stream>>>(a);
     } else {
-      composition_kernel<1><<<grid, kThreads, 0, stream>>>(a);
+      composition_kernel<1, false><<<grid, kThreads, 0, stream>>>(a);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -13,7 +13,9 @@
 // of the packed vector in its order, B-major: proof b's words of a leaf
 // follow proof b - 1's. Kinds:
 //   VALUES  tree t's values at idx = ((x & mask) + add[i]) & mask for each
-//           query x and slot i: (q, n_idx) words a proof;
+//           query x and slot i: (q, n_idx) words a proof; (q, n_idx, w) for a
+//           tree whose leaf is a row of w words, whose values are each proof's
+//           w columns one after the other (a trace of w columns): the row;
 //   PATHS   the auth paths there, level l the sibling digest
 //           level[l][(idx >> l) ^ 1]: (q, n_idx, depth, 8) words a proof;
 //   ROOTS   the top level of `count` trees: (count, 8) words a proof;
@@ -63,8 +65,8 @@ constexpr int kThreads = 512;
 // stride, segments
 constexpr int kHeader = 10;
 // tree: values (2), levels (2, or 0: the levels follow the values by `head`
-// words of the same allocation), top (2), log_n | log_blk << 8 | sharded << 16,
-// head
+// words of the same allocation), top (2), log_n | log_blk << 8 | sharded << 16
+// | (width - 1) << 20, head
 constexpr int kTree = 8;
 // segment: out, code, per_proof, mask | stride, add[8] | offset | count, then
 // its tree's record (VALUES, PATHS, FIRST) or its source's pointer (COPY)
@@ -85,7 +87,7 @@ struct Tree {
   const uint32_t* values;
   const uint32_t* levels;  // the block's levels (level 0 first)
   const uint32_t* top;     // the whole levels above a shard's subtree
-  uint32_t log_n, log_blk, sharded;
+  uint32_t log_n, log_blk, sharded, width;
 };
 
 __device__ __forceinline__ Tree tree_at(const uint32_t* t) {
@@ -96,7 +98,8 @@ __device__ __forceinline__ Tree tree_at(const uint32_t* t) {
   r.top = ptr_at(t, 4);
   r.log_n = t[6] & 255u;
   r.log_blk = (t[6] >> 8) & 255u;
-  r.sharded = t[6] >> 16;
+  r.sharded = (t[6] >> 16) & 15u;
+  r.width = (t[6] >> 20) + 1u;
   return r;
 }
 
@@ -131,8 +134,8 @@ __device__ __forceinline__ const uint32_t* level_ptr(const Tree& t, uint32_t lev
   return base + at * 8 + col;
 }
 
-// The address of tree t's value at idx for proof b, or null where this shard
-// does not own it.
+// The address of tree t's value at idx for proof b (of its column 0, for a
+// tree of rows), or null where this shard does not own it.
 __device__ __forceinline__ const uint32_t* value_ptr(const Tree& t, uint32_t idx, uint32_t b,
                                                      int shard) {
   uint64_t at = idx;
@@ -141,7 +144,7 @@ __device__ __forceinline__ const uint32_t* value_ptr(const Tree& t, uint32_t idx
     at = idx & ((1u << t.log_blk) - 1u);
   } else {
     if (shard > 0 || idx >= (1u << t.log_blk)) return nullptr;
-    at += static_cast<uint64_t>(b) << t.log_blk;
+    at += static_cast<uint64_t>(b) * t.width << t.log_blk;
   }
   return t.values + at;
 }
@@ -191,7 +194,16 @@ __global__ void __launch_bounds__(kThreads) openings_kernel(const __grid_constan
       const uint32_t qi = s >> ln, slot = s & ((1u << ln) - 1u);
       if (slot >= n_idx) continue;
       const uint32_t idx = ((__ldg(queries + qi) & mask) + seg[4 + slot]) & mask;
-      out[qi * n_idx + slot] = load_or_0(value_ptr(t, idx, b, shard));
+      const uint32_t* src = value_ptr(t, idx, b, shard);
+      if (t.width == 1) {
+        out[qi * n_idx + slot] = load_or_0(src);
+        continue;
+      }
+      // a row: word c of column c, the columns 2^log_n words apart
+      for (uint32_t c = 0; c < t.width; ++c) {
+        out[(qi * n_idx + slot) * t.width + c] =
+            load_or_0(src ? src + (static_cast<uint64_t>(c) << t.log_blk) : nullptr);
+      }
     }
     return;
   }

@@ -37,6 +37,12 @@
 // stride. The arithmetic is the same; kPlanes = false is the row-major kernel
 // as it was.
 //
+// sha256_leaf_rows is the leaf of a trace of w columns: leaf i of a tree
+// hashes row i, its w words big-endian, in one block for w <= 13 (52 bytes of
+// message, the pad byte and the 8-byte length fit 64). The columns lie one
+// after the other, (trees, w, n): thread i reads word c at c·n + i, so a
+// warp's loads of one column are 128 consecutive bytes.
+//
 // Reference semantics (merkle.rs:30-45): leaf = SHA256(u32 big-endian),
 // node = SHA256(left || right); digests are 8 big-endian words.
 #include <cstdint>
@@ -116,6 +122,28 @@ __global__ void sha256_node(const uint32_t* __restrict__ left, uint32_t* __restr
   compress(st, w);
   compress_pad512(st);
   store_hash<kPlanes>(out, i, k, st);
+}
+
+constexpr int kRowMax = 13;  // most words of a row leaf: one block
+
+// Leaf g of trees·2^log_n: tree g >> log_n, row i = g & (2^log_n − 1) of its
+// (width, 2^log_n) columns.
+__global__ void sha256_leaf_rows(const uint32_t* __restrict__ vals, uint32_t* __restrict__ out,
+                                 int64_t leaves, int log_n, int width) {
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (g >= leaves) return;
+  const int64_t n = int64_t{1} << log_n;
+  const uint32_t* row = vals + (g >> log_n) * width * n + (g & (n - 1));
+  uint32_t w[16];
+#pragma unroll
+  for (int c = 0; c < 15; ++c) {
+    w[c] = c < width ? __ldg(row + c * n) : (c == width ? 0x80000000u : 0u);
+  }
+  w[15] = 32u * static_cast<uint32_t>(width);  // message length in bits
+  uint32_t st[8];
+  init_state(st);
+  compress(st, w);
+  store_digest(out + g * 8, st);
 }
 
 constexpr int kTailMax = 1024;  // most parents of a tail's first level: one thread each
@@ -207,6 +235,22 @@ extern "C" int zk_sha256_leaf(const uint32_t* vals, uint32_t* out, int64_t n,
                               cudaStream_t stream) {
   if (n < 0 || n > 0x7fffffffLL * kThreads) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) sha256_leaf<false><<<blocks_for(n), kThreads, 0, stream>>>(vals, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// vals: (trees, width, 2^log_n) residues, the columns of each tree one after
+// the other, 1 <= width <= 13 -> out: (trees·2^log_n, 8) digests, 16-byte
+// aligned, leaf i of a tree the hash of its row i.
+extern "C" int zk_sha256_leaf_rows(const uint32_t* vals, uint32_t* out, int64_t trees, int log_n,
+                                   int width, cudaStream_t stream) {
+  if (trees < 0 || log_n < 0 || log_n > 40 || width < 1 || width > kRowMax) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t leaves = trees << log_n;
+  if (leaves > 0x7fffffffLL * kThreads) return static_cast<int>(cudaErrorInvalidValue);
+  if (leaves > 0) {
+    sha256_leaf_rows<<<blocks_for(leaves), kThreads, 0, stream>>>(vals, out, leaves, log_n, width);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,10 @@
 // The witness of each AIR of ``protocol/air.py``: its recurrence as one
 // compiled host loop over F_p, for any odd prime p < 2^32.
 //
+// A trace of one column is a sequence; mulfib8's is a row of 8 registers a
+// step, each written to its own column (column-major, the layout the
+// prover's LDE takes: one column after the other).
+//
 // Built by g++ (``protocol/witness.py``), not by nvcc: the kernel build
 // takes ``csrc/*.cu`` only. A plain C interface, loaded with ctypes, which
 // releases the GIL for the call.
@@ -18,7 +22,7 @@
 namespace {
 
 // The recurrence kinds; protocol/air.py names them (`Air.recurrence`).
-enum Kind : int { kFibonacciSq = 0, kFibonacci = 1, kSquareChain = 2, kWork = 3 };
+enum Kind : int { kFibonacciSq = 0, kFibonacci = 1, kSquareChain = 2, kWork = 3, kMulfib8 = 4 };
 
 struct Fp {
   uint64_t p;
@@ -103,6 +107,36 @@ void run(const Fp& f, const uint32_t* secrets, int64_t batch, int64_t len, uint6
   }
 }
 
+// Winterfell's mulfib8: 8 registers a row, row 0 = 1, b, s0·s1, …, s_j =
+// s_{j−2}·s_{j−1}; the next row s0' = s6·s7, s1' = s7·s0', s_j' =
+// s_{j−2}'·s_{j−1}'. Register j of row i goes to column j: out + (b·8 + j)·len
+// + i. last is s6 of the last row, the statement's result.
+constexpr int kRegs = 8;
+
+template <bool kMontWords>
+void run_mulfib8(const Fp& f, const uint32_t* secrets, int64_t batch, int64_t len, uint64_t r,
+                 uint64_t one, uint64_t r2, uint32_t* out, uint32_t* last) {
+  auto word = [&](uint64_t x) {
+    return static_cast<uint32_t>(kMontWords ? x : f.mul(x, r));
+  };
+  for (int64_t b = 0; b < batch; ++b) {
+    uint32_t* col = out + b * kRegs * len;
+    uint64_t s[kRegs];
+    s[0] = one;
+    s[1] = f.mul(secrets[b], r2);
+    for (int j = 2; j < kRegs; ++j) s[j] = f.mul(s[j - 2], s[j - 1]);
+    for (int64_t i = 0; i < len; ++i) {
+      for (int j = 0; j < kRegs; ++j) col[j * len + i] = word(s[j]);
+      if (i + 1 == len) break;
+      const uint64_t s0 = f.mul(s[6], s[7]);
+      s[1] = f.mul(s[7], s0);
+      s[0] = s0;
+      for (int j = 2; j < kRegs; ++j) s[j] = f.mul(s[j - 2], s[j - 1]);
+    }
+    last[b] = static_cast<uint32_t>(f.mul(s[6], 1));
+  }
+}
+
 template <int K>
 void dispatch(const Fp& f, const uint32_t* secrets, int64_t batch, int64_t len, uint64_t c,
               uint64_t r, uint64_t one, uint64_t r2, uint32_t* out, uint32_t* last) {
@@ -117,7 +151,9 @@ void dispatch(const Fp& f, const uint32_t* secrets, int64_t batch, int64_t len, 
 // `batch` traces of `len` rows into out (batch × len, row-major): row i of
 // trace j is x_i·r mod p, x the recurrence `kind` from secrets[j] (< p) with
 // the constant c (< p). last[j] is the trace's last value x_{len−1}
-// (canonical). r < p. Returns 0, or 1 for an unknown kind.
+// (canonical). r < p. Returns 0, or 1 for an unknown kind. kMulfib8 writes
+// batch × 8 × len (each trace's 8 columns) and ignores c; its last[j] is
+// register 6 of the last row.
 extern "C" int zk_witness(int kind, const uint32_t* secrets, int64_t batch, int64_t len,
                           uint32_t c, uint32_t r, uint32_t p, uint32_t p_inv_neg,
                           uint32_t* out, uint32_t* last) {
@@ -137,6 +173,12 @@ extern "C" int zk_witness(int kind, const uint32_t* secrets, int64_t batch, int6
       return 0;
     case kWork:
       dispatch<kWork>(f, secrets, batch, len, cm, r, one, r2, out, last);
+      return 0;
+    case kMulfib8:
+      if (r == one)
+        run_mulfib8<true>(f, secrets, batch, len, r, one, r2, out, last);
+      else
+        run_mulfib8<false>(f, secrets, batch, len, r, one, r2, out, last);
       return 0;
     default:
       return 1;

@@ -69,16 +69,19 @@ class Levels(list):
         self.buffer, self.head = buffer, head
 
 
-def tree_values(bsz: int, n: int, device) -> tuple:
+def tree_values(bsz: int, n: int, device, width: int = 1) -> tuple:
     """(values, room): an uninitialised (B, n) uint32 tensor for B trees'
     values at the head of `room`, one flat allocation with room for all their
-    digest levels after them. `build_levels_batch(values, room)` writes the
-    levels there, so that a tree is one allocation (the openings kernel then
-    reads it through one pointer)."""
-    head = values_words(bsz, n)
+    digest levels after them; (B, w, n), each tree's w columns one after the
+    other, for trees whose leaf is a row of `width` = w > 1 words.
+    `build_levels_batch(values, room)` writes the levels there, so that a
+    tree is one allocation (the openings kernel then reads it through one
+    pointer)."""
+    head = values_words(bsz * width, n)
     room = torch.empty(head + level_offset(n, n.bit_length(), bsz), dtype=torch.uint32,
                        device=device)
-    return room[: bsz * n].view(bsz, n), room
+    shape = (bsz, n) if width == 1 else (bsz, width, n)
+    return room[: bsz * width * n].view(shape), room
 
 
 def _level_views(buf: torch.Tensor, bsz: int, n: int) -> list:
@@ -117,31 +120,39 @@ def build_levels_batch(values: torch.Tensor, room: torch.Tensor | None = None) -
     `tree_values` made the two, else a new one. Each wide level is one kernel
     call on the flat (B·k) hash axis: n is even, so children 2j and 2j+1 of
     any parent lie in one tree and pairs never cross trees. The narrow levels
-    (the whole tree, if it is small) are one call for all B trees."""
+    (the whole tree, if it is small) are one call for all B trees. Values
+    (B, w, n) are trees of row leaves: leaf i hashes row i of the w columns
+    (`sha256_kernel.leaf_hash_rows`), and the levels above follow as for any
+    tree."""
     with tracing.span("merkle"):
-        bsz, n = values.shape
+        rows = values.dim() == 3
+        bsz, n = values.shape[0], values.shape[-1]
+        width = values.shape[1] if rows else 1
         assert n >= 1 and n & (n - 1) == 0
         tail = 2 * sha256_kernel.TAIL_PARENTS  # children a tree the tail call takes
-        flat = fp.as_u32(fp.as_i32(values).reshape(bsz * n))
         if room is None:
             whole, head = torch.empty(level_offset(n, n.bit_length(), bsz), dtype=torch.uint32,
                                       device=values.device), 0
         else:
-            whole, head = room, values_words(bsz, n)
+            whole, head = room, values_words(bsz * width, n)
             if (values.data_ptr() != room.data_ptr()
                     or room.numel() != head + level_offset(n, n.bit_length(), bsz)):
                 raise ValueError("build_levels_batch: `room` is not the allocation that "
                                  "tree_values made for these values")
         buf = whole[head:]
-        if 2 <= n <= tail:
-            if flat.data_ptr() % 8:  # a view at an odd word: the kernel reads pairs
-                flat = flat.clone()
-            return Levels(sha256_kernel.tree_tail(flat, bsz, from_values=True, out=buf), whole,
-                          head)
         levels = _level_views(buf, bsz, n)
-        level = sha256_kernel.leaf_hash(flat, out=levels[0].view(bsz * n, 8))
+        if rows:
+            level = sha256_kernel.leaf_hash_rows(values, out=levels[0].view(bsz * n, 8))
+        else:
+            flat = fp.as_u32(fp.as_i32(values).reshape(bsz * n))
+            if 2 <= n <= tail:
+                if flat.data_ptr() % 8:  # a view at an odd word: the kernel reads pairs
+                    flat = flat.clone()
+                return Levels(sha256_kernel.tree_tail(flat, bsz, from_values=True, out=buf),
+                              whole, head)
+            level = sha256_kernel.leaf_hash(flat, out=levels[0].view(bsz * n, 8))
         lv = 0
-        while n >> lv > 2 * sha256_kernel.TAIL_PARENTS:
+        while n >> lv > tail:
             lv += 1
             level = sha256_kernel.node_hash_pairs(level, out=levels[lv].view(-1, 8))
         if n >> lv > 1:
@@ -226,9 +237,12 @@ def gather_paths(levels: list, indices: list) -> torch.Tensor:
     return torch.stack(sibs, dim=1)
 
 
-def compute_root_from_path(element: int, index: int, path: list) -> bytes:
-    """Recompute the root from one opening — verifier side (merkle.rs:82-110)."""
-    current = hashlib.sha256(int(element).to_bytes(4, "big")).digest()
+def compute_root_from_path(element, index: int, path: list) -> bytes:
+    """Recompute the root from one opening — verifier side (merkle.rs:82-110).
+    `element` is the leaf's value, or the row of values of a leaf of w > 1
+    columns (hashed as its words big-endian)."""
+    words = element if isinstance(element, (list, tuple)) else [element]
+    current = hashlib.sha256(b"".join(int(v).to_bytes(4, "big") for v in words)).digest()
     i = index
     for sibling in path:
         if i & 1:

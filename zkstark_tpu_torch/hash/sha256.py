@@ -6,8 +6,9 @@ uint32 tensors. The arithmetic runs on int64 tensors holding 32-bit words
 after each add. These are the plain twins of the CUDA kernels in
 ``ops/sha256_kernel.py``; Merkle trees go through those wrappers.
 
-Only the two message shapes the protocol needs are provided:
+Only the message shapes the protocol needs are provided:
   * `leaf_hash` — a 4-byte big-endian u32 (merkle.rs:30-34), one block;
+  * `row_hash` — a row of w such words, the leaf of a trace of w columns;
   * `node_hash` — 64 bytes = left‖right digests (merkle.rs:42-45), two blocks.
 """
 
@@ -128,6 +129,21 @@ def leaf_hash(values: torch.Tensor) -> torch.Tensor:
     block = [v, 0x80000000] + [0] * 13 + [32]
     zero = v & 0
     return _stack(compress_words([zero + h for h in H0], block))
+
+
+def row_hash(rows: torch.Tensor) -> torch.Tensor:
+    """SHA-256 of each row's w words big-endian: the words, 0x80000000, zeros
+    and the bit length 32·w, in as many blocks as that takes (one for
+    w ≤ 13). rows: (N, w) uint32 → (N, 8) uint32; w = 1 is `leaf_hash`."""
+    words = _words(rows, rows.shape[-1])
+    w = len(words)
+    pad = -(w + 3) % 16  # the 0x80000000 word, the zeros, the 64-bit length
+    msg = words + [0x80000000] + [0] * pad + [0, 32 * w]
+    zero = (words[0] if words else fp.wide(rows).sum(-1)) & 0
+    state = [zero + h for h in H0]
+    for at in range(0, len(msg), 16):
+        state = compress_words(state, msg[at : at + 16])
+    return _stack(state)
 
 
 def node_hash(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:

@@ -63,11 +63,14 @@ def verify_native(proof, cfg) -> None:
     """Raise VerificationError if the C++ verifier rejects the proof. The
     constraint system travels as the serialized AIR (air.serialize_air).
     The C++ verifier folds log2(trace domain) FRI rounds; a config with
-    other rounds (an AIR of degree above 2, ``config.py`` `fri_rounds`)
-    raises ValueError instead of being rejected there."""
+    other rounds (an AIR of degree above 2, ``config.py`` `fri_rounds`), or
+    a trace of more than one column, raises ValueError instead of being
+    rejected there."""
     from zkstark_tpu_torch.protocol.air import serialize_air
+    from zkstark_tpu_torch.protocol.prover import require_one_column
     from zkstark_tpu_torch.protocol.verifier import VerificationError
 
+    require_one_column(cfg, "verify_native")
     if cfg.fri_rounds != cfg.trace_domain.bit_length() - 1:
         raise ValueError(
             f"verify_native: the {cfg.air.name!r} AIR folds {cfg.fri_rounds} FRI rounds; "

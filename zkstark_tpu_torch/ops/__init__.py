@@ -22,6 +22,7 @@ from zkstark_tpu_torch.ops import (
 # kernel → (its wrapper module, the module's launch counter)
 _COUNTERS = {
     "sha256_leaf": (sha256_kernel, "leaf_launches"),
+    "sha256_leaf_rows": (sha256_kernel, "leaf_rows_launches"),
     "sha256_node": (sha256_kernel, "node_launches"),
     "sha256_tree_tail": (sha256_kernel, "tail_launches"),
     "sha256_leaf_planes": (sha256_kernel, "leaf_planes_launches"),

@@ -36,6 +36,8 @@ _INT = ctypes.c_int
 _SIGNATURES = {
     # (vals, out, n, stream)
     "zk_sha256_leaf": (_P, _P, _I64, _P),
+    # (vals, out, trees, log_n, width, stream)
+    "zk_sha256_leaf_rows": (_P, _P, _I64, _INT, _INT, _P),
     # (children, out, k, stream)
     "zk_sha256_node": (_P, _P, _I64, _P),
     # (vals, out planes, n, stream)
@@ -79,10 +81,10 @@ _SIGNATURES = {
     ),
     # (f_eval, halo, halo_len, inv_dens, alphas, program, program_words, shifts_by_4,
     #  geo_a, geo_b, geo_shift, offset, cp_eval, cp_res, batch, len, start, d, p,
-    #  p_inv_neg, stream)
+    #  p_inv_neg, width, stream)
     "zk_composition": (
         _P, _P, _I64, _P, _P, _P, _INT, _INT, _P, _P, _INT, _U32, _P, _P, _I64, _I64, _I64,
-        _I64, _U32, _U32, _P,
+        _I64, _U32, _U32, _I64, _P,
     ),
     # (in, out, n, p, p_inv_neg, stream)
     "zk_from_mont": (_P, _P, _I64, _U32, _U32, _P),

@@ -17,9 +17,16 @@ hands to the C++ verifier, with its arguments made ready for the device:
       boundary:   [0, to_mont(value)]                     num = f(x) − value
       transition: [1, n_ops, (op, arg)…]                  num = the program's result
         OP_F arg = (shift·blowup) mod d: f(g^k·x_j) is f_eval[(j + arg) mod d];
+        with w > 1 columns, arg = c·d + (shift·blowup) mod d: column c;
         OP_CONST arg = to_mont(constant); OP_X reads x_j = offset·h^j, taken
         from the two small cached tables of a `ntt_kernel.GeoScale` (no vector
         of the domain is kept for it); OP_ADD, OP_SUB, OP_MUL pop two, push one.
+
+A trace of `Program.width` = w > 1 columns is (…, w, d), each proof's
+columns one after the other, and the results are (…, d); a boundary on a
+column c > 0 is encoded as the transition program f_c − value, which is the
+same arithmetic. Such a program takes no halo: the sharded prover proves
+traces of one column.
 
 A shard of the sharded prover passes its block of `len` points from domain
 index `start` on, and the first words of the next shard's block as `halo`:
@@ -63,6 +70,7 @@ class Program:
     domain: int
     generator: int
     offset: int
+    width: int = 1
 
     def constraints(self):
         """[(0, value_mont) | (1, [(op, arg), …]), …] decoded from `words`."""
@@ -85,8 +93,9 @@ class Program:
 
     @property
     def reach(self) -> int:
-        """The largest OP_F argument: how far past a point its reads go."""
-        return max(_f_args(self), default=0)
+        """The largest shift of an OP_F argument: how far past a point its
+        reads go."""
+        return max((arg % self.domain for arg in _f_args(self)), default=0)
 
     @property
     def field_ops(self) -> tuple[int, int, int]:
@@ -114,20 +123,32 @@ def _f_args(prog: Program) -> tuple:
 
 
 def encode(constraints, shifts, blowup: int, domain: int, generator: int, offset: int,
-           field: Field = FIELD101) -> Program:
-    """`constraints`: ("boundary", value) or ("transition", postfix program
-    of ``air.numerator_program``: OP_F takes an index into `shifts`, OP_CONST a
-    standard residue). Raises ValueError for a program whose stack does not fit
-    `MAX_DEPTH` or does not end with one value."""
+           field: Field = FIELD101, width: int = 1) -> Program:
+    """`constraints`: ("boundary", value) on column 0, ("boundary", (value,
+    column)), or ("transition", postfix program of ``air.numerator_program``:
+    OP_F takes column·len(shifts) + an index into `shifts`, OP_CONST a
+    standard residue), over a trace of `width` columns. Raises ValueError for
+    a program whose stack does not fit `MAX_DEPTH` or does not end with one
+    value."""
+    if width > 1 and (domain & (domain - 1) or width * domain > 1 << 32):
+        raise ValueError(f"composition: {width} columns of {domain} points")
     words = [len(constraints)]
     for kind, body in constraints:
         if kind == "boundary":
-            words += [0, field.mont_scalar(body)]
-            continue
+            value, column = body if isinstance(body, tuple) else (body, 0)
+            if not 0 <= column < width:
+                raise ValueError(f"composition: a boundary on column {column} of {width}")
+            if column == 0:
+                words += [0, field.mont_scalar(value)]
+                continue
+            body = [(OP_F, column * len(shifts) + shifts.index(0)), (OP_CONST, value), (OP_SUB, 0)]
         depth, ops = 0, []
         for op, arg in body:
             if op == OP_F:
-                arg = shifts[arg] * blowup % domain
+                column, k = divmod(arg, len(shifts))
+                if column >= width:
+                    raise ValueError(f"composition: a read of column {column} of {width}")
+                arg = column * domain + shifts[k] * blowup % domain
             elif op == OP_CONST:
                 arg = field.mont_scalar(arg)
             elif op not in (OP_X, OP_ADD, OP_SUB, OP_MUL):
@@ -140,7 +161,7 @@ def encode(constraints, shifts, blowup: int, domain: int, generator: int, offset
             raise ValueError("composition: the program does not end with one value")
         words += [1, len(body), *ops]
     return Program(tuple(int(w) for w in words), len(constraints), domain, generator % field.p,
-                   offset % field.p)
+                   offset % field.p, width)
 
 
 def _xs_plain(prog: Program, field: Field, device) -> torch.Tensor:
@@ -155,9 +176,12 @@ def composition_plain(f_eval, inv_dens, alphas, prog: Program, field: Field = FI
                       halo=None, start: int = 0):
     """Plain-torch twin of the kernel, same arguments: the program
     interpreted with whole-tensor field ops, f(g^k·x) as a roll (or, with a
-    halo, a slice of the block followed by its halo)."""
+    halo, a slice of the block followed by its halo); column c of a wide
+    trace's (…, w, d) at c."""
     f = fp.wide(f_eval)
     points = f.shape[-1]
+    cols = [f] if prog.width == 1 else list(f.unbind(-2))
+    f = cols[0]
     inv = fp.wide(inv_dens)[:, start : start + points]
     ext = None if halo is None else torch.cat([f, fp.wide(halo)], dim=-1)
     if isinstance(alphas, torch.Tensor):
@@ -172,7 +196,8 @@ def composition_plain(f_eval, inv_dens, alphas, prog: Program, field: Field = FI
             stack = []
             for op, arg in body:
                 if op == OP_F:
-                    stack.append(torch.roll(f, -arg, dims=-1) if ext is None
+                    column, arg = divmod(arg, prog.domain)
+                    stack.append(torch.roll(cols[column], -arg, dims=-1) if ext is None
                                  else ext[..., arg : arg + points])
                 elif op == OP_X:
                     stack.append(_xs_plain(prog, field, f.device)[0, start : start + points])
@@ -215,7 +240,8 @@ def composition(f_eval: torch.Tensor, inv_dens: torch.Tensor, alphas, prog: Prog
                 field: Field = FIELD101, *, halo: torch.Tensor | None = None, start: int = 0,
                 res_out: torch.Tensor | None = None):
     """f_eval (…, d) uint32 Montgomery residues, the leading axes independent
-    proofs; inv_dens (n_constraints, d) the inverse denominators; alphas
+    proofs, or (…, w, d) for a program of w > 1 columns; inv_dens
+    (n_constraints, d) the inverse denominators; alphas
     Montgomery-form ints, one per constraint, or a (…, n_constraints) uint32
     tensor on f_eval's device. Returns (cp_eval, cp_res), each (…, d), the
     residues written into `res_out` where given (the tree's values at the
@@ -230,6 +256,10 @@ def composition(f_eval: torch.Tensor, inv_dens: torch.Tensor, alphas, prog: Prog
     if f_eval.dtype != torch.uint32 or f_eval.dim() < 1 or (halo is None and points != d):
         raise TypeError(f"composition: needs a (…, {d}) uint32 tensor, got {f_eval.dtype} "
                         f"{tuple(f_eval.shape)}")
+    if prog.width > 1 and (halo is not None or f_eval.dim() < 2
+                           or f_eval.shape[-2] != prog.width):
+        raise ValueError(f"composition: a program of {prog.width} columns needs a "
+                         f"(…, {prog.width}, {d}) tensor and no halo, got {tuple(f_eval.shape)}")
     if halo is not None and (
         halo.dtype != torch.uint32 or halo.shape[:-1] != f_eval.shape[:-1]
         or halo.device != f_eval.device or halo.shape[-1] < prog.reach
@@ -241,8 +271,8 @@ def composition(f_eval: torch.Tensor, inv_dens: torch.Tensor, alphas, prog: Prog
             or inv_dens.device != f_eval.device):
         raise ValueError(f"composition: inverse denominators must be ({n}, {d}) uint32 on the "
                          "evaluations' device")
-    lead = f_eval.shape[:-1]
-    batch = f_eval.numel() // max(points, 1)
+    lead = f_eval.shape[:-1] if prog.width == 1 else f_eval.shape[:-2]
+    batch = f_eval.numel() // max(points * prog.width, 1)
     if isinstance(alphas, torch.Tensor):
         if (alphas.dtype != torch.uint32 or alphas.device != f_eval.device
                 or alphas.shape[-1] != n or alphas.numel() not in (n, batch * n)):
@@ -287,6 +317,7 @@ def composition(f_eval: torch.Tensor, inv_dens: torch.Tensor, alphas, prog: Prog
                 d,
                 field.p,
                 field.p_inv_neg,
+                prog.width,
                 _build.stream(f_eval),
             )
         _build.check(rc, "composition")

@@ -15,7 +15,8 @@ a leaf follow proof b − 1's. The kinds:
   * VALUES: tree `tree`'s values at the indices idx = ((x & mask) +
     adds[i]) & mask of each query x (the JAX index rules: x + k·blowup per
     shift with mask = 2^32 − 1; a FRI layer's x & (size − 1) and its partner
-    + size/2), (q, n_idx) words a proof;
+    + size/2), (q, n_idx) words a proof; (q, n_idx, w) for a tree whose leaf
+    is a row of w words (`Tree.width`), the row's words;
   * PATHS: the auth paths at those indices, level l the sibling digest
     levels[l][(idx >> l) ^ 1] for l below the root, (q, n_idx, depth, 8);
   * ROOTS: the roots of `count` trees from `tree` on, (count, 8);
@@ -69,8 +70,9 @@ ALL = 0xFFFFFFFF  # the mask of an index that is not reduced
 # after `SEG_OWN_WORDS` words of its own
 HEADER_WORDS, TREE_WORDS, SEG_OWN_WORDS = 10, 8, 12
 SEG_WORDS = SEG_OWN_WORDS + TREE_WORDS
-# how a tree reaches the kernel (`_collect`'s key): one allocation of values
-# and levels; values and levels apart; a shard's blocks; and the top above them
+# how a tree reaches the kernel (`_collect`'s key: log_n + 64·how + 256·(width
+# − 1)): one allocation of values and levels; values and levels apart; a
+# shard's blocks; and the top above them
 ONE, APART, BLOCK, BLOCK_TOP = range(4)
 # the block sizes the kernel is built for, in words (the largest just under
 # the 32,764 bytes of parameters Hopper takes)
@@ -110,12 +112,15 @@ class Tree(NamedTuple):
     `Levels.buffer` whose head holds them: `merkle.tree_values`). On a shard: `values` a `Block` of this shard's (n/S,) residues,
     `levels` a `Block` of its subtree's buffer (levels 0 … log2(n/S), the
     subtree's root last), and `top` the flat buffer of the whole levels above
-    (S/2 rows up to the root), None at S = 1."""
+    (S/2 rows up to the root), None at S = 1. A whole tree whose leaf is a
+    row of `width` = w > 1 words (a trace of w columns) has values lead + (w,
+    n), each proof's columns one after the other, and VALUES opens the row."""
 
     values: torch.Tensor | Block
     levels: torch.Tensor | Block
     log_n: int
     top: torch.Tensor | None = None
+    width: int = 1
 
 
 def _tensor(a) -> torch.Tensor:
@@ -154,37 +159,42 @@ def describe(segments: tuple, lead: tuple, q: int, sharded: bool, shapes: tuple)
     flags, arrays, n_copies = shapes
     tree_shapes, at = [], 0
     for f in flags:
-        log_n, how = f & 63, f >> 6
+        log_n, how, width = f & 63, (f >> 6) & 3, (f >> 8) + 1
         take = (1, 2, 2, 3)[how]
         got = arrays[at : at + take]
         at += take
-        tree_shapes.append((log_n, None, got[0], None, False) if how == ONE else
+        tree_shapes.append((log_n, None, got[0], None, False, width) if how == ONE else
                            (log_n, got[0], got[1], got[2] if how == BLOCK_TOP else None,
-                            how != APART))
+                            how != APART, width))
     copy_shapes = arrays[at:]
     assert len(copy_shapes) == n_copies
     bsz = int(np.prod(lead, dtype=np.int64))
     n_trees = len(tree_shapes)
     if n_trees > MAX_TREES:
         raise ValueError(f"openings: {n_trees} trees (at most {MAX_TREES})")
-    trees = []  # (log_n | log_blk << 8 | sharded << 16, head, its pointers' (slot, source))
+    # (log_n | log_blk << 8 | sharded << 16 | (width − 1) << 20, head, its
+    # pointers' (slot, source))
+    trees, widths = [], []
     at = 2  # the pointers' places after the queries' and the result's
-    for log_n, vshape, lshape, tshape, block in tree_shapes:
+    for log_n, vshape, lshape, tshape, block, width in tree_shapes:
         if not 0 <= log_n <= 30:
             raise ValueError(f"openings: a tree of 2^{log_n} leaves")
         if block != sharded and block:
             raise ValueError("openings: a shard's block without a shard index")
+        if width > 1 and block:
+            raise ValueError(f"openings: a shard's block of rows of {width} words")
+        row = () if width == 1 else (width,)
         head = 0
         if vshape is None:  # the values at the head of the levels' allocation
             if block:
                 raise ValueError("openings: a shard's block needs its values")
-            vshape, head = lead + (1 << log_n,), values_words(bsz, 1 << log_n)
+            vshape, head = lead + row + (1 << log_n,), values_words(bsz * width, 1 << log_n)
         size = vshape[0] if block else (vshape[-1] if vshape else 0)
         if (size < 1 or size & (size - 1) or size > 1 << log_n
-                or (not block and (tuple(vshape[:-1]) != lead or size != 1 << log_n))
+                or (not block and (tuple(vshape[:-1]) != lead + row or size != 1 << log_n))
                 or (block and len(vshape) != 1)):
             raise ValueError(f"openings: values of shape {tuple(vshape)} for a tree of "
-                             f"2^{log_n} leaves behind {lead}")
+                             f"2^{log_n} leaves of {width} words behind {lead}")
         log_blk = size.bit_length() - 1
         rows = 1 if block else bsz
         if lshape != (head + 8 * rows * (2 * size - 1),):
@@ -198,7 +208,8 @@ def describe(segments: tuple, lead: tuple, q: int, sharded: bool, shapes: tuple)
         if want_top:
             ptrs.append((2, at + len(ptrs)))  # the top
         at += len(ptrs)
-        trees.append((log_n | log_blk << 8 | int(block) << 16, head, ptrs))
+        trees.append((log_n | log_blk << 8 | int(block) << 16 | (width - 1) << 20, head, ptrs))
+        widths.append(width)
     segs, total = [], 0  # (own words, the tree's record or the source's pointer)
     for seg in segments:
         n_idx = len(seg.adds)
@@ -207,7 +218,7 @@ def describe(segments: tuple, lead: tuple, q: int, sharded: bool, shapes: tuple)
                 raise ValueError(f"openings: {seg} reads no tree or has {n_idx} slots "
                                  f"(at most {MAX_ADDS})")
             depth = trees[seg.tree][0] & 255 if seg.kind == PATHS else 0
-            per_proof = q * n_idx * (8 * depth if seg.kind == PATHS else 1)
+            per_proof = q * n_idx * (8 * depth if seg.kind == PATHS else widths[seg.tree])
             ln = (n_idx - 1).bit_length()
             lg = (depth - 1).bit_length() if depth else 0
             if 8 << lg > THREADS:
@@ -293,16 +304,17 @@ def _collect(queries, trees, copies) -> tuple:
     arrays, flags = [], []
     for t in trees:
         v, lv, top = t.values, t.levels, t.top
+        row = 256 * (t.width - 1)
         if v is None:
             arrays.append(lv)
-            flags.append(t.log_n)
+            flags.append(t.log_n + row)
         elif type(v) is Block:
             lv = lv.words if type(lv) is Block else lv
             arrays += (v.words, lv) if top is None else (v.words, lv, top)
-            flags.append(t.log_n + 64 * (BLOCK if top is None else BLOCK_TOP))
+            flags.append(t.log_n + 64 * (BLOCK if top is None else BLOCK_TOP) + row)
         else:
             arrays += (v, lv)
-            flags.append(t.log_n + 64 * APART)
+            flags.append(t.log_n + 64 * APART + row)
     arrays += copies
     if arrays and (set(map(_DTYPE, arrays)) != _U32
                    or set(map(torch.Tensor.get_device, arrays)) != {queries.get_device()}
@@ -371,8 +383,15 @@ def _level_rows(tree: Tree, level, idx: torch.Tensor, bsz: int, shard):
 
 
 def _values(tree: Tree, idx: torch.Tensor, shard) -> torch.Tensor:
-    """(B, r) int32 values at the (B, r) indices, owner-masked."""
+    """(B, r) int32 values at the (B, r) indices, owner-masked; (B, r, w)
+    rows of a tree of rows."""
     vals = fp.as_i32(_tensor(tree.values))
+    if tree.width > 1:  # a whole tree, and shard 0 or none
+        vals = vals.reshape(idx.shape[0], tree.width, -1)
+        own = (idx < vals.shape[-1]) & (shard is None or shard == 0)
+        at = torch.where(own, idx, 0)[:, None, :].expand(-1, tree.width, -1)
+        got = torch.take_along_dim(vals, at, dim=-1).transpose(1, 2)
+        return torch.where(own[..., None], got, 0)
     if type(tree.values) is Block:
         log_blk = vals.shape[0].bit_length() - 1
         own = (idx >> log_blk) == shard
@@ -393,8 +412,9 @@ def openings_plain(queries: torch.Tensor, trees: list, segments, shard: int | No
     plan = describe(tuple(segments), lead, q, shard is not None, _collect(queries, trees, copies)[0])
     bsz = int(np.prod(lead, dtype=np.int64))
     trees = [t if t.values is not None else t._replace(  # one allocation: split it
-        values=t.levels[: bsz << t.log_n].view(lead + (1 << t.log_n,)),
-        levels=t.levels[values_words(bsz, 1 << t.log_n):]) for t in trees]
+        values=t.levels[: bsz * t.width << t.log_n].view(
+            lead + ((t.width,) if t.width > 1 else ()) + (1 << t.log_n,)),
+        levels=t.levels[values_words(bsz * t.width, 1 << t.log_n):]) for t in trees]
     x = fp.wide(queries.reshape(bsz, q))
     dev = queries.device
     whole_own = shard is None or shard == 0

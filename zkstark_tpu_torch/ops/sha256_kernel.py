@@ -13,6 +13,11 @@ row-major (N, 8), the layout the Merkle levels keep; the TPU's lane-planar
 (8, m, 128) layout and its 1024-hash minimum batch are not carried over, so
 any N ≥ 1 goes through the kernel on the card.
 
+`leaf_hash_rows` is the leaf of a trace of w columns (``sha256_leaf_rows``):
+leaf i hashes row i's w words big-endian, one block for w ≤ `ROW_MAX`,
+read from the columns one after the other, (B, w, n), as the LDE leaves
+them.
+
 `leaf_planes`, `node_planes` and `node_planes_folded` are the same two
 kernels on the TPU kernels' own layout, the digests of a level as 8 word
 planes: flat (8, n) uint32, word w of hash i at [w, i] (the JAX package's
@@ -38,6 +43,7 @@ from __future__ import annotations
 
 import torch
 
+from zkstark_tpu_torch import tracing
 from zkstark_tpu_torch.field import fp
 from zkstark_tpu_torch.hash import sha256
 from zkstark_tpu_torch.ops import _build, ntt_kernel
@@ -45,12 +51,17 @@ from zkstark_tpu_torch.ops import _build, ntt_kernel
 leaf_launches = 0  # launches of sha256_leaf, counted by leaf_hash
 node_launches = 0  # launches of sha256_node, counted by node_hash_pairs
 tail_launches = 0  # launches of sha256_tree_tail, counted by tree_tail
+leaf_rows_launches = 0  # launches of sha256_leaf_rows, counted by leaf_hash_rows
 leaf_planes_launches = 0  # launches of sha256_leaf<planes>, counted by leaf_planes
 node_planes_launches = 0  # launches of sha256_node<planes>, counted by _node_planes
 
 # The smallest batch the hash kernels take: any n >= 1 (the TPU kernels' was
 # one grid step of 1024 hashes).
 MIN_BATCH = 1
+
+# The most words of a row that `leaf_hash_rows` takes: a row, the pad word
+# and the 64-bit length in one 64-byte block.
+ROW_MAX = 13
 
 # The most parents a tree that `tree_tail` takes in its first level (a thread
 # each, one block a tree): the kernel's limit, and where `hash/merkle.py`
@@ -61,6 +72,12 @@ TAIL_PARENTS = 1024
 
 def leaf_hash_plain(values: torch.Tensor) -> torch.Tensor:
     return sha256.leaf_hash(values)
+
+
+def leaf_hash_rows_plain(values: torch.Tensor) -> torch.Tensor:
+    """(B, w, n) columns → (B·n, 8): the digest of each tree's rows."""
+    rows = fp.as_i32(values).transpose(-1, -2).reshape(-1, values.shape[-2])
+    return sha256.row_hash(fp.as_u32(rows.contiguous()))
 
 
 def node_hash_pairs_plain(children: torch.Tensor) -> torch.Tensor:
@@ -85,6 +102,36 @@ def leaf_hash(values: torch.Tensor, out: torch.Tensor | None = None) -> torch.Te
         )
     _build.check(rc, "sha256_leaf")
     leaf_launches += 1
+    return out
+
+
+def leaf_hash_rows(values: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, w, n) uint32, the w columns of B trees of n leaves one after the
+    other (n a power of two, 1 ≤ w ≤ `ROW_MAX`) → (B·n, 8) leaf digests,
+    leaf i of tree b the hash of row i's w words big-endian, written into
+    `out` where given (a view into the trees' one allocation). Counts the
+    leaves in the tracer's ``merkle.row_leaves``."""
+    global leaf_rows_launches
+    _build.require(values, "sha256_leaf_rows", 3)
+    bsz, width, n = values.shape
+    if not 1 <= width <= ROW_MAX or n < 1 or n & (n - 1):
+        raise ValueError(f"sha256_leaf_rows: needs (B, w, n) columns, 1 <= w <= {ROW_MAX} and "
+                         f"n a power of two, got {tuple(values.shape)}")
+    out = _build.out_tensor(out, (bsz * n, 8), values, "sha256_leaf_rows", 16)
+    tracing.count("merkle.row_leaves", bsz * n)
+    if values.device.type == "cpu":
+        return out.copy_(leaf_hash_rows_plain(values))
+    if not values.is_contiguous():
+        raise ValueError("sha256_leaf_rows: the columns must be contiguous")
+    if bsz == 0:
+        return out
+    with torch.cuda.device(values.device):
+        rc = _build.kernels().zk_sha256_leaf_rows(
+            values.data_ptr(), out.data_ptr(), bsz, n.bit_length() - 1, width,
+            _build.stream(values)
+        )
+    _build.check(rc, "sha256_leaf_rows")
+    leaf_rows_launches += 1
     return out
 
 

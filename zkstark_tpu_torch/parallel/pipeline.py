@@ -48,16 +48,19 @@ from zkstark_tpu_torch.protocol.openings import packed_result
 
 
 def lde(cfg: StarkConfig, coeffs: torch.Tensor, mesh: Mesh | None):
-    """Phase 1's coset LDE of the (B, ·) coefficients."""
+    """Phase 1's coset LDE of the (B, ·) coefficients, or (B, w, ·) of a
+    trace of w > 1 columns: the columns ride the batch axis."""
     if mesh is None:
         return ntt.coset_ntt(coeffs, cfg.eval_domain, cfg.coset_offset, cfg.field)
     return coset_ntt_sixstep(coeffs[0], cfg.eval_domain, cfg.coset_offset, mesh, cfg.field)
 
 
-def _tree_values(shape: tuple, device) -> tuple:
-    """`merkle.tree_values` in `shape` (…, n): (values, room), the values
-    at the head of their tree's one allocation."""
-    values, room = merkle.tree_values(math.prod(shape[:-1]), shape[-1], device)
+def _tree_values(shape: tuple, device, width: int = 1) -> tuple:
+    """`merkle.tree_values` in `shape` (…, n), or (…, w, n) for trees of rows
+    of `width` = w > 1 words: (values, room), the values at the head of
+    their tree's one allocation."""
+    lead = shape[:-1] if width == 1 else shape[:-2]
+    values, room = merkle.tree_values(math.prod(lead), shape[-1], device, width)
     return values.view(shape), room
 
 
@@ -78,11 +81,12 @@ def commit_lde(cfg: StarkConfig, f_eval, mesh: Mesh | None) -> tuple:
     """Phase 1's commitment, (f_res, f_levels): the standard residues of a
     whole or sharded f_eval (``ops/elementwise.py``: one launch a tensor or
     block on a card) and their tree; a whole one in one allocation with its
-    levels (`merkle.tree_values`)."""
+    levels (`merkle.tree_values`). A trace of w > 1 columns, f_eval (B, w,
+    d), is one tree of d row leaves a proof."""
     if isinstance(f_eval, list):
         res = [elementwise.from_mont(b, cfg.field) for b in f_eval]
         return res, build_levels(res, mesh)
-    res, room = _tree_values(f_eval.shape, f_eval.device)
+    res, room = _tree_values(f_eval.shape, f_eval.device, cfg.air.width)
     elementwise.from_mont(f_eval, cfg.field, out=res)
     return res, build_levels(res, mesh, room)
 
@@ -95,9 +99,11 @@ def halo_words(cfg: StarkConfig) -> int:
 def composition(cfg: StarkConfig, f_eval, alphas_mont, mesh: Mesh | None):
     """(cp_eval, cp_res, cp_levels): `prover.composition_eval_res`, whole
     or sharded like f_eval, and the tree of the residues (a whole one in one
-    allocation with its levels)."""
+    allocation with its levels). A whole f_eval of w > 1 columns is (B, w,
+    d), the composition (B, d)."""
     if not isinstance(f_eval, list):
-        res, room = _tree_values(f_eval.shape, f_eval.device)
+        shape = f_eval.shape if cfg.air.width == 1 else f_eval.shape[:-2] + f_eval.shape[-1:]
+        res, room = _tree_values(shape, f_eval.device)
         cp, res = pr.composition_eval_res(cfg, f_eval, alphas_mont, res_out=res)
         return cp, res, build_levels(res, None, room)
     s_count = mesh.size

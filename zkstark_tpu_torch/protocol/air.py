@@ -2,11 +2,15 @@
 ``zkstark_tpu/protocol/air.py``, which has the first three.
 
 An `Air` generates the witness trace and declares an ordered list of
-constraints, `Boundary(step, value)` and `Transition(numerator, exempt)`. One
-numerator definition runs in three modes: on Montgomery-form tensors for the
-prover's composition (`device_ops`), on exact Python ints for the verifier's
-point check (`host_ops`), and on a recorder that emits the RPN program the
-C++ verifier interprets (`serialize_air`).
+constraints, `Boundary(step, value, column)` and `Transition(numerator,
+exempt)`. One numerator definition runs in three modes: on Montgomery-form
+tensors for the prover's composition (`device_ops`), on exact Python ints for
+the verifier's point check (`host_ops`), and on a recorder that emits the RPN
+program the C++ verifier interprets (`serialize_air`).
+
+A trace has `Air.width` columns, w. A numerator reads f(k), the trace at
+g^k·x: at w = 1 the value itself, at w > 1 a row of w values, f(k)[j] being
+column j (`row`).
 
 `interpolate_trace` replaces the reference's O(n³) Lagrange interpolation
 (polynomial.rs:337-383) by one size-n INTT plus a rank-1 correction that
@@ -31,11 +35,12 @@ from zkstark_tpu_torch.protocol import witness
 
 @dataclass(frozen=True)
 class Boundary:
-    """c(x) = (f(x) − value) / (x − g^step) (reference c0/c1,
-    prover.rs:101-113)."""
+    """c(x) = (f(x)[column] − value) / (x − g^step) (reference c0/c1,
+    prover.rs:101-113; column 0 of a trace of one)."""
 
     step: int
     value: int
+    column: int = 0
 
 
 @dataclass(frozen=True)
@@ -124,11 +129,20 @@ class RecorderOps:
         return _Node(OP_CONST, v % self.p)
 
 
-def numerator_program(numerator: Callable, shifts: tuple, p: int = fp.P) -> list:
-    """[(op, arg), …] postfix encoding of a transition numerator."""
-    root = numerator(
-        RecorderOps(p), lambda k: _Node(OP_F, shifts.index(k)), _Node(OP_X)
-    )
+def row(read: Callable, width: int) -> Callable:
+    """A numerator's f from `read(k, j)`, column j at shift k: f(k) is the
+    value of column 0 at w = 1, else the row [read(k, 0), …, read(k, w − 1)]."""
+    if width == 1:
+        return lambda k: read(k, 0)
+    return lambda k: [read(k, j) for j in range(width)]
+
+
+def numerator_program(numerator: Callable, shifts: tuple, p: int = fp.P, width: int = 1) -> list:
+    """[(op, arg), …] postfix encoding of a transition numerator. OP_F's
+    argument is j·len(shifts) + the shift's index, column j at that shift:
+    the index alone at w = 1 (and in column 0)."""
+    f = row(lambda k, j: _Node(OP_F, j * len(shifts) + shifts.index(k)), width)
+    root = numerator(RecorderOps(p), f, _Node(OP_X))
     prog = []
 
     def emit(node):
@@ -142,14 +156,15 @@ def numerator_program(numerator: Callable, shifts: tuple, p: int = fp.P) -> list
 
 @dataclass(frozen=True)
 class Air:
-    """Witness generation plus an ordered constraint list. `shifts` names
-    the f(g^k·x) openings the constraints read; `degree` is the largest
-    degree of a transition numerator in the trace values, which bounds the
-    composition's degree and so sets the FRI rounds (``config.py``
-    `fri_rounds`). `recurrence` names the witness's loop in
-    ``csrc/witness.cpp`` (``protocol/witness.py``), `constant` its round
-    constant; None: the AIR has no witness."""
+    """Witness generation plus an ordered constraint list. `width` is the
+    trace's columns; `shifts` names the f(g^k·x) openings the constraints
+    read; `degree` is the largest degree of a transition numerator in the
+    trace values, which bounds the composition's degree and so sets the FRI
+    rounds (``config.py`` `fri_rounds`). `recurrence` names the witness's
+    loop in ``csrc/witness.cpp`` (``protocol/witness.py``), `constant` its
+    round constant; None: the AIR has no witness."""
 
+    width = 1
     shifts = (0,)
     name = "air"
     degree = 2
@@ -161,7 +176,8 @@ class Air:
         return max(self.shifts)
 
     def trace(self, trace_len: int, secret: int, p: int = fp.P) -> np.ndarray:
-        """The witness from `secret`: trace_len canonical uint32 residues."""
+        """The witness from `secret`: trace_len canonical uint32 residues, or
+        (width, trace_len) of them, one column a row, at w > 1."""
         return witness.traces(self, [secret], trace_len, fp.field_for(p), mont=False)[0][0]
 
     def constraints(self, cfg) -> tuple:
@@ -277,12 +293,58 @@ class WinterfellWorkAir(Air):
         )
 
 
+MULFIB8_WIDTH = 8
+
+
+def _mulfib8_numerator(j: int) -> Callable:
+    """s_j' − a·b, where (a, b) = (s6, s7) for j = 0, (s7, s0') for j = 1 and
+    (s_{j−2}', s_{j−1}') above: the next row follows from the current one."""
+
+    def numerator(ops, f, x):
+        cur, nxt = f(0), f(1)
+        a, b = ((cur[6], cur[7]) if j == 0 else (cur[7], nxt[0]) if j == 1
+                else (nxt[j - 2], nxt[j - 1]))
+        return ops.sub(nxt[j], ops.mul(a, b))
+
+    return numerator
+
+
+_MULFIB8_NUMERATORS = tuple(_mulfib8_numerator(j) for j in range(MULFIB8_WIDTH))
+
+
+@dataclass(frozen=True)
+class WinterfellMulfib8Air(Air):
+    """Winterfell's `mulfib8` (facebook/winterfell, examples/src/fibonacci/
+    mulfib8: air.rs, prover.rs): the multiplicative Fibonacci sequence in 8
+    registers a row. Row 0 is 1, b, s0·s1, …; each next row follows from
+    s0' = s6·s7, s1' = s7·s0', s_j' = s_{j−2}'·s_{j−1}', 8 transitions of
+    degree 2 across the row and the next. The assertions are s0[0] = 1,
+    s1[0] = b (the public `boundary_first`) and s6 at the last row (the
+    public `boundary_last`, the result)."""
+
+    width = MULFIB8_WIDTH
+    shifts = (0, 1)
+    name = "winterfell-mulfib8"
+    recurrence = witness.MULFIB8
+
+    def constraints(self, cfg) -> tuple:
+        n = cfg.trace_domain
+        return (
+            Boundary(0, 1, 0),
+            Boundary(0, cfg.boundary_first, 1),
+            Boundary(cfg.trace_len - 1, cfg.boundary_last, 6),
+            *(Transition(num, (n - 2, n - 1)) for num in _MULFIB8_NUMERATORS),
+        )
+
+
 FIBONACCI_SQ = FibonacciSqAir()
 FIBONACCI = FibonacciAir()
 SQUARE_CHAIN = SquareChainAir()
 WINTERFELL_WORK = WinterfellWorkAir()
+WINTERFELL_MULFIB8 = WinterfellMulfib8Air()
 
-AIRS = {a.name: a for a in (FIBONACCI_SQ, FIBONACCI, SQUARE_CHAIN, WINTERFELL_WORK)}
+AIRS = {a.name: a for a in (FIBONACCI_SQ, FIBONACCI, SQUARE_CHAIN, WINTERFELL_WORK,
+                            WINTERFELL_MULFIB8)}
 
 
 # The Python twins of the compiled witness loops (``csrc/witness.cpp``):
@@ -335,20 +397,40 @@ def _work_trace_plain(length: int, secret: int, p: int) -> np.ndarray:
     return a
 
 
+def _mulfib8_trace_plain(length: int, secret: int, p: int) -> np.ndarray:
+    """(8, length): column j of row i is s_j at row i."""
+    a = np.empty((length, MULFIB8_WIDTH), dtype=np.uint32)
+    s = [1, secret % p]
+    for j in range(2, MULFIB8_WIDTH):
+        s.append(s[j - 2] * s[j - 1] % p)
+    for i in range(length):
+        a[i] = s
+        nxt = [s[6] * s[7] % p]
+        nxt.append(s[7] * nxt[0] % p)
+        for j in range(2, MULFIB8_WIDTH):
+            nxt.append(nxt[j - 2] * nxt[j - 1] % p)
+        s = nxt
+    return np.ascontiguousarray(a.T)
+
+
 _PLAIN_TRACES = {
     FIBONACCI_SQ.name: _fibonacci_sq_trace_plain,
     FIBONACCI.name: _fibonacci_trace_plain,
     SQUARE_CHAIN.name: _square_chain_trace_plain,
     WINTERFELL_WORK.name: _work_trace_plain,
+    WINTERFELL_MULFIB8.name: _mulfib8_trace_plain,
 }
 
 
 def composition_at_point(cfg, x: int, f_vals: dict, alphas: list) -> int:
     """Σ αᵢ·cᵢ(x) with exact ints — the verifier's composition check value
-    (proof.rs:63-77 generalised). f_vals maps shift k → opened f(g^k·x)."""
+    (proof.rs:63-77 generalised). f_vals maps shift k → opened f(g^k·x): the
+    value at w = 1, the row of w values otherwise."""
     p = cfg.field.p
     g = cfg.trace_generator
     n = cfg.trace_domain
+    width = cfg.air.width
+    f = row(lambda k, j: (f_vals[k] if width == 1 else f_vals[k][j]) % p, width)
 
     def inv(a):
         return pow(a % p, p - 2, p)
@@ -356,10 +438,11 @@ def composition_at_point(cfg, x: int, f_vals: dict, alphas: list) -> int:
     acc = 0
     for alpha, con in zip(alphas, cfg.constraints):
         if isinstance(con, Boundary):
-            num = (f_vals[0] - con.value) % p
+            num = (f_vals[0] if width == 1 else f_vals[0][con.column]) - con.value
+            num %= p
             den = (x - pow(g, con.step, p)) % p
         else:
-            num = con.numerator(host_ops(p), lambda k: f_vals[k] % p, x % p)
+            num = con.numerator(host_ops(p), f, x % p)
             z = (pow(x, n, p) - 1) % p
             for e in con.exempt:
                 z = z * inv(x - pow(g, e, p)) % p
@@ -372,16 +455,19 @@ def serialize_air(cfg) -> np.ndarray:
     """Flat uint32 blob of the constraint system for the C++ verifier:
 
     [n_shifts, shifts…, n_constraints] then per constraint:
-      Boundary:   [0, step, value]
-      Transition: [1, n_exempt, exempt…, n_ops, (op, arg)…]
+      Boundary:   [0, step, value] on column 0, [2, step, value, column] on
+                  another (the C++ verifier reads traces of one column)
+      Transition: [1, n_exempt, exempt…, n_ops, (op, arg)…], OP_F's
+                  argument that of `numerator_program`
     """
     shifts = cfg.air.shifts
     words = [len(shifts), *shifts, len(cfg.constraints)]
     for con in cfg.constraints:
         if isinstance(con, Boundary):
-            words += [0, con.step, con.value % cfg.field.p]
+            value = con.value % cfg.field.p
+            words += [0, con.step, value] if con.column == 0 else [2, con.step, value, con.column]
         else:
-            prog = numerator_program(con.numerator, shifts, cfg.field.p)
+            prog = numerator_program(con.numerator, shifts, cfg.field.p, cfg.air.width)
             words += [1, len(con.exempt), *con.exempt, len(prog)]
             for op, arg in prog:
                 words += [op, arg]

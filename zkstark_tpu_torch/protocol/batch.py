@@ -73,8 +73,11 @@ def prove_batch(cfg: StarkConfig, secrets, device="cuda", mesh=None,
     mesh: the batch axis is split over the mesh's axis `data_axis` (default:
     all axes, flattened) into equal groups, each proved on the mesh's device
     by the first shard of its group (the others along the remaining axes hold
-    it replicated); every process returns all B proofs."""
+    it replicated); every process returns all B proofs. A mesh takes traces
+    of one column (ValueError otherwise, before any launch)."""
     secrets = list(secrets)
+    if mesh is not None:
+        pr.require_one_column(cfg, "prove_batch over a mesh")
     with tracing.span("prove_batch"):
         if mesh is None:
             dev = pr.resolve_device(device)

@@ -227,6 +227,7 @@ class ResumableProver:
 
     def __init__(self, cfg: StarkConfig, secret: int, path: str, fused: bool = False, device="cuda",
                  mesh=None):
+        pr.require_one_column(cfg, "the resumable prover")
         self.cfg = cfg
         self.secret = secret
         self.path = path

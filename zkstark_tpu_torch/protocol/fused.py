@@ -26,7 +26,12 @@ the fetched roots and checks every challenge (`prover.fused_replay`).
 
 Every function takes a leading batch axis: B proofs are B chains in lockstep
 and B trees hashed as one flat batch (``protocol/batch.py``); `fused_core` is
-the B = 1 case with that axis removed. The steps are those of
+the B = 1 case with that axis removed. A trace of w > 1 columns
+(`Air.width`) is (B, w, trace_len): its w polynomials ride the batch axis
+through the interpolation and the LDE, its tree's leaf i is row i of the w
+columns (``ops/sha256_kernel.py`` `leaf_hash_rows`), the composition reads
+column c at shift k, and a trace opening is the row. A mesh proves traces of
+one column. The steps are those of
 ``parallel/pipeline.py``, one body for both forms below.
 
 With a `mesh` (``parallel/mesh.py``, B = 1) the program is sharded over the
@@ -69,7 +74,8 @@ def _zero_state(bsz: int, device: torch.device) -> torch.Tensor:
 
 def fused_core_batch_packed(cfg: StarkConfig, traces_mont: torch.Tensor,
                             mesh=None) -> torch.Tensor:
-    """(B, trace_len) Montgomery traces → everything B transcripts and
+    """(B, trace_len) Montgomery traces ((B, w, trace_len) for w > 1
+    columns) → everything B transcripts and
     decommitments need, as one flat uint32 vector on the traces' device, the
     challenges derived there: the leaves of `out_shapes(cfg, (B,))` (roots,
     alphas, betas, free_term, queries and the openings), keys sorted, each
@@ -91,6 +97,8 @@ def _core(cfg: StarkConfig, traces_mont: torch.Tensor, mesh) -> torch.Tensor:
     dev = traces_mont.device
     if mesh is not None and bsz != 1:
         raise ValueError(f"a sharded core proves one trace, not {bsz}")
+    if mesh is not None:
+        pr.require_one_column(cfg, "a sharded core")
 
     # ---- Phase 1: interpolate + LDE + commit (prover.rs:24-85) ----
     with tracing.span("lde"):
@@ -162,7 +170,8 @@ def fused_core(cfg: StarkConfig, trace_mont: torch.Tensor, mesh=None) -> dict:
     """(trace_len,) Montgomery trace → the dict of `fused_core_batch` without
     the batch axis, the JAX package's shapes: roots (2 + fri_rounds, 8),
     alphas (n_constraints,), betas (fri_rounds,), free_term (), queries
-    (n_queries,), open_f_vals (q, n_shifts), open_f_paths (q, n_shifts,
+    (n_queries,), open_f_vals (q, n_shifts) ((q, n_shifts, w) for w > 1
+    columns), open_f_paths (q, n_shifts,
     depth, 8), open_cp_vals (q,), open_cp_paths (q, depth, 8) and per FRI
     layer open_fri_vals (q, 2), open_fri_paths (q, 2, depth, 8); views of
     `fused_core_packed`'s vector. With a `mesh`, sharded over the evaluation

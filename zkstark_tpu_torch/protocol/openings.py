@@ -75,11 +75,13 @@ def unpack_tree(flat: np.ndarray, shapes: dict) -> dict:
 
 
 def opening_shapes(cfg, lead: tuple = ()) -> dict:
-    """The shape of every opening leaf behind the leading axes `lead`."""
+    """The shape of every opening leaf behind the leading axes `lead`; a
+    trace opening of w > 1 columns is the row of w values."""
     q, shifts, rounds = cfg.n_queries, len(cfg.air.shifts), cfg.fri_rounds
     depth = cfg.eval_domain.bit_length() - 1
+    row = (cfg.air.width,) if cfg.air.width > 1 else ()
     return {
-        "open_f_vals": lead + (q, shifts),
+        "open_f_vals": lead + (q, shifts) + row,
         "open_f_paths": lead + (q, shifts, depth, 8),
         "open_cp_vals": lead + (q,),
         "open_cp_paths": lead + (q, depth, 8),
@@ -136,23 +138,26 @@ def packed_segments(cfg) -> tuple:
     )
 
 
-def _tree(res, levels, block: int | None) -> open_op.Tree:
+def _tree(res, levels, block: int | None, width: int = 1) -> open_op.Tree:
     """One tree as the openings kernel reads it: whole, or on a shard its
-    block `block` of a sharded tree (``parallel/merkle_sharded.py``)."""
+    block `block` of a sharded tree (``parallel/merkle_sharded.py``); a tree
+    of rows of `width` words where its leaves are rows."""
     if isinstance(res, list):
         return open_op.Tree(open_op.Block(res[block]), open_op.Block(levels.blocks[block]),
                             len(levels) - 1, levels.top)
     if not isinstance(levels, merkle.Levels):
         raise ValueError("openings: a tree's levels must be one allocation (hash.merkle.Levels)")
     # values made at the head of the allocation (merkle.tree_values): one pointer
-    return open_op.Tree(None if levels.head else res, levels.buffer, len(levels) - 1)
+    return open_op.Tree(None if levels.head else res, levels.buffer, len(levels) - 1,
+                        width=width)
 
 
-def trees(f_res, f_levels, layer_res, layer_levels, block: int | None = None) -> list:
-    """The `ops.openings.Tree`s of the trace and of each FRI layer (layer 0
-    the composition), whole or, on a shard, block `block` of each sharded
-    one."""
-    return [_tree(f_res, f_levels, block)] + [
+def trees(f_res, f_levels, layer_res, layer_levels, block: int | None = None,
+          width: int = 1) -> list:
+    """The `ops.openings.Tree`s of the trace (of rows of `width` words) and
+    of each FRI layer (layer 0 the composition), whole or, on a shard, block
+    `block` of each sharded one."""
+    return [_tree(f_res, f_levels, block, width)] + [
         _tree(res, levels, block) for res, levels in zip(layer_res, layer_levels)
     ]
 
@@ -166,7 +171,8 @@ def sparse_openings_packed(cfg, f_res, f_levels, layer_res, layer_levels, querie
     `hash.merkle.Levels`. On shard `shard` of a mesh (B = 1), the values that
     are lists are sharded, and item `block` of each is this shard's block
     (`ops.openings.Block`; see there for the owner rule)."""
-    t = trees(f_res, f_levels, layer_res, layer_levels, None if shard is None else block)
+    t = trees(f_res, f_levels, layer_res, layer_levels, None if shard is None else block,
+              cfg.air.width)
     return open_op.openings(queries, t, segments(cfg), shard)
 
 
@@ -179,7 +185,8 @@ def packed_result(cfg, f_res, f_levels, layer_res, layer_levels, draws,
     (value 0 of the last layer) and the alphas, betas and queries. On a shard
     as `sparse_openings_packed`; shard 0 alone writes the roots above the
     subtrees, the draws and the free term."""
-    t = trees(f_res, f_levels, layer_res, layer_levels, None if shard is None else block)
+    t = trees(f_res, f_levels, layer_res, layer_levels, None if shard is None else block,
+              cfg.air.width)
     first, count = draw_columns(cfg)[2]
     queries = draws[:, first : first + count]
     return open_op.openings(queries, t, packed_segments(cfg), shard, (draws,))
@@ -190,7 +197,8 @@ def sparse_openings_device(cfg, f_res, f_levels, layer_res, layer_levels, querie
     (…, q) uint32 tensor whose leading axes match those of the values (…, n)
     and levels (…, k, 8). Returns views of `sparse_openings_packed`'s vector
     with the JAX package's shapes behind the leading axes: open_f_vals (…, q,
-    n_shifts), open_f_paths (…, q, n_shifts, depth, 8), open_cp_vals (…, q),
+    n_shifts) ((…, q, n_shifts, w) for a trace of w > 1 columns),
+    open_f_paths (…, q, n_shifts, depth, 8), open_cp_vals (…, q),
     open_cp_paths (…, q, depth, 8) and per FRI layer open_fri_vals (…, q, 2),
     open_fri_paths (…, q, 2, depth, 8). Makes no call that waits for the
     device."""

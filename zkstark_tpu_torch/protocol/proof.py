@@ -29,10 +29,12 @@ class Proof:
 def expected_proof_len(cfg) -> int:
     """The length of a proof's transcript from the proof layout: the roots
     (32 B each), the free term and every drawn challenge (4 B each), and per
-    query the trace openings, the composition opening (a value and a path: 4
-    + 8 + 32·depth) and one pair per FRI layer (two values, two paths)."""
+    query the trace openings (a row of w values and a path: 4·w + 8 +
+    32·depth each), the composition opening (4 + 8 + 32·depth) and one pair
+    per FRI layer (two values, two paths)."""
     depth = cfg.eval_domain.bit_length() - 1
     rounds, q = cfg.fri_rounds, cfg.n_queries
-    opening = (len(cfg.air.shifts) + 1) * (4 + 8 + 32 * depth)
+    path = 8 + 32 * depth
+    opening = len(cfg.air.shifts) * (4 * cfg.air.width + path) + 4 + path
     pairs = sum(8 + 2 * (8 + 32 * (depth - layer)) for layer in range(rounds))
     return 32 * (2 + rounds) + 4 + 4 * (cfg.n_constraints + rounds + q) + q * (opening + pairs)

@@ -199,14 +199,15 @@ def coset_domain(cfg: StarkConfig, device) -> torch.Tensor:
 def composition_program(cfg: StarkConfig) -> composition.Program:
     """The config's constraint system as the device program of
     ``ops/composition.py``."""
-    p = cfg.field.p
+    p, width = cfg.field.p, cfg.air.width
     cons = [
-        ("boundary", con.value % p) if isinstance(con, air.Boundary)
-        else ("transition", air.numerator_program(con.numerator, cfg.air.shifts, p))
+        ("boundary", con.value % p if con.column == 0 else (con.value % p, con.column))
+        if isinstance(con, air.Boundary)
+        else ("transition", air.numerator_program(con.numerator, cfg.air.shifts, p, width))
         for con in cfg.constraints
     ]
     return composition.encode(cons, cfg.air.shifts, cfg.blowup, cfg.eval_domain,
-                              cfg.domain_generator, cfg.coset_offset, cfg.field)
+                              cfg.domain_generator, cfg.coset_offset, cfg.field, width)
 
 
 def _roll(x: torch.Tensor, shift: int) -> torch.Tensor:
@@ -216,21 +217,25 @@ def _roll(x: torch.Tensor, shift: int) -> torch.Tensor:
 def composition_eval_plain(cfg: StarkConfig, f_eval: torch.Tensor, alphas_mont):
     """`composition_eval` as whole-tensor field ops straight from the
     config's AIR (no device program): the numerators run on `air.device_ops`,
-    f(g^k·x) is a roll by k·blowup (g = h^blowup). What the composition
+    f(g^k·x) is a roll by k·blowup (g = h^blowup); column j of a trace of
+    w > 1 columns, f_eval (…, w, d), is f_eval[…, j, :]. What the composition
     kernel and its program are held against."""
     inv_dens = composition_constants(cfg, f_eval.device)
     xs = coset_domain(cfg, f_eval.device)
     fld = cfg.field
     b = cfg.blowup
+    width = cfg.air.width
     shifted = {k: f_eval if k == 0 else _roll(f_eval, -k * b) for k in cfg.air.shifts}
+    f = air.row(lambda k, j: shifted[k] if width == 1 else shifted[k][..., j, :], width)
     if isinstance(alphas_mont, torch.Tensor):
         alphas_mont = [alphas_mont[..., i : i + 1] for i in range(cfg.n_constraints)]
     acc = None
     for con, inv_den, alpha in zip(cfg.constraints, inv_dens, alphas_mont):
         if isinstance(con, air.Boundary):
-            num = fp.sub_f(fld, shifted[0], fld.mont_scalar(con.value))
+            col = shifted[0] if width == 1 else shifted[0][..., con.column, :]
+            num = fp.sub_f(fld, col, fld.mont_scalar(con.value))
         else:
-            num = con.numerator(air.device_ops(fld), lambda k: shifted[k], xs)
+            num = con.numerator(air.device_ops(fld), f, xs)
         term = fp.mont_mul_f(fld, fp.mont_mul_f(fld, num, inv_den), alpha)
         acc = term if acc is None else fp.add_f(fld, acc, term)
     return acc
@@ -240,8 +245,9 @@ def composition_eval_res(cfg: StarkConfig, f_eval: torch.Tensor, alphas_mont, re
     """Pointwise constraint composition on the coset (prover.rs:87-180)
     from the config's AIR, through `ops.composition.composition`: one kernel
     launch on a CUDA tensor. f_eval: (…, d) uint32 Montgomery, the leading
-    axes independent proofs; alphas_mont: Montgomery-form ints, one per
-    constraint, or a (…, n_constraints) uint32 device tensor. Returns
+    axes independent proofs ((…, w, d) for a trace of w > 1 columns);
+    alphas_mont: Montgomery-form ints, one per constraint, or a (…,
+    n_constraints) uint32 device tensor. Returns
     (cp_eval, cp_res): Montgomery form and standard residues, the residues
     written into `res_out` where given."""
     return composition.composition(
@@ -344,14 +350,23 @@ def upload(arr, device: torch.device) -> torch.Tensor:
 
 def witness_words(cfg: StarkConfig, secrets, device: torch.device):
     """(words, last) of the witnesses of `secrets` (``protocol/witness.py``):
-    words, their (B, trace_len) Montgomery words in an int32 host tensor
-    that `upload` sends to `device` (pinned on a card); last, each trace's
-    last value (canonical)."""
-    words = torch.empty((len(secrets), cfg.trace_len), dtype=torch.int32,
-                        pin_memory=device.type == "cuda")
+    words, their (B, trace_len) Montgomery words ((B, w, trace_len) for a
+    trace of w > 1 columns) in an int32 host tensor that `upload` sends to
+    `device` (pinned on a card); last, each trace's output (canonical)."""
+    width = cfg.air.width
+    shape = (len(secrets), cfg.trace_len) if width == 1 else (len(secrets), width, cfg.trace_len)
+    words = torch.empty(shape, dtype=torch.int32, pin_memory=device.type == "cuda")
     _, last = witness.traces(cfg.air, secrets, cfg.trace_len, cfg.field,
                              out=words.numpy().view(np.uint32))
     return words, last
+
+
+def require_one_column(cfg: StarkConfig, what: str) -> None:
+    """Raise ValueError, naming the width, where `cfg`'s trace has more than
+    one column: for the entries that prove traces of one column only."""
+    if cfg.air.width != 1:
+        raise ValueError(f"{what} proves traces of one column; the {cfg.air.name!r} AIR has "
+                         f"width {cfg.air.width}")
 
 
 def trace_to_device(cfg: StarkConfig, secret: int, device) -> torch.Tensor:
@@ -482,8 +497,9 @@ def decommit_layout(cfg: StarkConfig) -> DecommitLayout:
     """The byte map and the commit cuts of `decommit` for the statement's
     shapes (queries, shifts, FRI rounds, depth). The commits are the
     reference's (prover.rs:256-289), generalised to n_queries: per query,
-    each trace shift's (u32, AuthPath), the composition's, then per FRI layer
-    (u32, u32, AuthPath, AuthPath)."""
+    each trace shift's (u32, AuthPath) (the row's w u32s, then the path, for
+    a trace of w > 1 columns), the composition's, then per FRI layer (u32,
+    u32, AuthPath, AuthPath)."""
     shapes = opening_shapes(cfg)
     value_shapes = {key: shapes[key] for key in _VALUE_KEYS}
     words = sum(int(np.prod(shape)) for shape in tree_leaves(shapes))
@@ -525,8 +541,9 @@ def decommit(cfg: StarkConfig, channel: Channel, out: dict, queries: list) -> Pr
     transcript's bytes laid down by one gather through `decommit_layout`'s
     byte map and committed by its cuts (`Channel.commit_cuts`), in the
     reference's commit order (prover.rs:256-289), generalised to n_queries.
-    Counts the openings serialized (``decommit.openings``, a FRI pair one)
-    and the bytes committed (``decommit.bytes``), once a call."""
+    Counts the openings serialized (``decommit.openings``, a FRI pair one, a
+    trace row one for each shift) and the bytes committed
+    (``decommit.bytes``), once a call."""
     with tracing.span("decommit"):
         layout = decommit_layout(cfg)
         leaves = _words(out, _OPENING_KEYS)
@@ -617,7 +634,8 @@ def prove(
     mesh: a ``parallel.mesh.Mesh`` — the fused program sharded over the
     evaluation domain on the mesh's device (`device` is then not read); the
     bytes are the same at any mesh size and shape, and on a process-group
-    mesh every process returns the same proof. Needs the fused path.
+    mesh every process returns the same proof. Needs the fused path and a
+    trace of one column (ValueError otherwise, before any launch).
 
     channel: the transcript to prove into (default: a new one), as in the
     JAX package. The host-synced path commits to it as it goes; the fused
@@ -626,6 +644,8 @@ def prove(
     `DeviceChannelMismatch` there, as the JAX package's does."""
     if mesh is not None and not fused:
         raise ValueError("sharded proving requires the fused path")
+    if mesh is not None:
+        require_one_column(cfg, "sharded proving")
     with tracing.span("prove"):
         dev = mesh.device if mesh is not None else resolve_device(device)
         if fused:

@@ -62,9 +62,11 @@ def verify(proof: Proof, cfg: StarkConfig = StarkConfig()) -> VerifyReport:
         free_term = ch.read_u32()
         # all query draws precede the openings (prover.rs:263 generalized)
         query_raws = [ch.expect_u32() for _ in range(cfg.n_queries)]
+        width = cfg.air.width
         per_query = []
         for _ in range(cfg.n_queries):
-            trace_open = [ch.read_opening() for _ in range(len(shifts) + 1)]
+            trace_open = [ch.read_opening() if width == 1 else ch.read_row_opening(width)
+                          for _ in shifts] + [ch.read_opening()]
             fri_open = [ch.read_fri_opening() for _ in range(rounds)]
             per_query.append((trace_open, fri_open))
         if not ch.reader.exhausted:
@@ -96,7 +98,8 @@ def verify(proof: Proof, cfg: StarkConfig = StarkConfig()) -> VerifyReport:
 
         # ---- composition identity at the query point (proof.rs:63-77),
         #      derived from the config's AIR — one constraint definition
-        #      shared with the prover (protocol/air.py) ----
+        #      shared with the prover (protocol/air.py); a trace of w > 1
+        #      columns opens rows ----
         f_vals = {k: trace_open[i][0] for i, k in enumerate(shifts)}
         cp0_x = trace_open[len(shifts)][0]
         cp0_calc = air.composition_at_point(cfg, x, f_vals, alphas)

@@ -45,9 +45,12 @@ and the counters ``cache.miss.<cache>`` and ``cache.evict``, and
 ``graph.eager``, ``graph.capture``, ``graph.replay`` (one of the three a call
 of the fused core) and ``graph.evict`` (``protocol/graph.py``), and
 ``decommit.openings`` and ``decommit.bytes`` (the openings a `decommit`
-serialized, a FRI pair one, and the bytes it committed; one count of each a
-call), and ``witness.rows`` (the rows a call of the compiled witness loop
-wrote: trace_len × the witnesses; `Air.trace` calls count too). A replayed core opens no `lde`, `merkle`, `chain` or `fold` span:
+serialized, a FRI pair one, a trace row one for each shift, and the bytes it
+committed; one count of each a call), ``witness.rows`` and ``witness.cells``
+(the rows and the words a call of the compiled witness loop wrote:
+trace_len × the witnesses, and that times the trace's columns; `Air.trace`
+calls count too), and ``merkle.row_leaves`` (the leaves of a trace of
+several columns that ``sha256_leaf_rows`` hashed, a call). A replayed core opens no `lde`, `merkle`, `chain` or `fold` span:
 they time the enqueue of eager and capturing calls. `prove` also
 has `fetch` (the wait and the unpacking), and with `timings` a `sync` span
 for each wait for the device it makes; `prove(fused=False)` has the spans

@@ -104,6 +104,13 @@ class ReplayChannel:
         self._absorb(bincode.ser_opening(v, path))
         return v, path
 
+    def read_row_opening(self, width: int):
+        """A trace opening of w > 1 columns: the row's w u32s, then its path."""
+        row = [self.reader.u32() for _ in range(width)]
+        path = self.reader.auth_path()
+        self._absorb(b"".join(map(bincode.ser_u32, row)) + bincode.ser_auth_path(path))
+        return row, path
+
     def read_fri_opening(self):
         v0 = self.reader.u32()
         v1 = self.reader.u32()
